@@ -69,8 +69,9 @@ class BlockPool(NamedTuple):
       free_stack: ``[num_blocks] int32`` — LIFO stack of free ids.
       free_top:   0-dim int32 — live entries in ``free_stack``.
       oom:        0-dim bool, sticky: an allocation ever failed.
-      parent:     ``[num_blocks] int32`` — delta-COW backing block; all
-                  NULL here, since delta COW is not ported yet.
+      parent:     ``[num_blocks] int32`` — delta-COW backing block (the
+                  KV cache's ``delta_cow``; all NULL under the store,
+                  whose delta COW is not ported yet).
       dirty:      ``[num_blocks, npos] bool`` — delta-COW slot mask.
     """
 

@@ -34,7 +34,13 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build", "library", "launch", "ptr"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("cow_write.cu", "refcount_update.cu", "cow_gather.cu", "clone_chain.cu")
+SOURCES = (
+    "cow_write.cu",
+    "refcount_update.cu",
+    "cow_gather.cu",
+    "clone_chain.cu",
+    "paged_attention.cu",
+)
 HEADERS = ("refcount_hist.cuh",)
 # No --use_fast_math: clone_chain's comb positions need IEEE division
 # to match the plain path bit for bit.

@@ -27,10 +27,21 @@ def cow_gather(
 ) -> torch.Tensor:
     """Gather pool blocks by table; negative entries yield zero blocks.
 
-    pool: [rows, *block_shape]; table: [k] int32.  Returns
+    pool: [rows, *block_shape], of 32-bit words, or of any dtype whose
+    rows are whole words (viewed as int32); table: [k] int32.  Returns
     ``[k, *block_shape]``, written into ``out`` when it is given.
     """
     k = table.shape[0]
+    if pool.dtype not in _WORD_DTYPES and pool.is_contiguous():
+        # Any payload is gathered as 32-bit words (a bf16 KV page is
+        # [L, 2, bs, KVH, hd] halves): view it, gather, view back.
+        row_bytes = pool[0].numel() * pool.element_size() if pool.shape[0] else 0
+        if row_bytes % 4 == 0 and (out is None or out.is_contiguous()):
+            words = pool.reshape(pool.shape[0], -1).view(torch.int32)
+            if out is None:
+                out = torch.empty((k, *pool.shape[1:]), dtype=pool.dtype, device=pool.device)
+            cow_gather(words, table, out=out.reshape(k, -1).view(torch.int32))
+            return out
     check(pool, "pool", _WORD_DTYPES)
     check(table, "table", torch.int32, (k,))
     if out is None:

@@ -32,12 +32,19 @@ __all__ = [
 ]
 
 #: kernel-op registry: public op name -> (subpackage, wrapper that
-#: launches the kernel).  Each wrapper has a ``launches`` counter.
+#: launches the kernel).  Each wrapper has a ``launches`` counter.  The
+#: reference's one ``paged_attention`` entry is two here, one per TPU
+#: kernel it dispatches to, so each variant's launches are counted.
 KNOWN_OPS = {
     "cow_write": ("repro_torch.kernels.cow_write", "cow_write"),
     "refcount_update": ("repro_torch.kernels.refcount_update", "refcount_delta"),
     "cow_gather": ("repro_torch.kernels.cow_gather", "cow_gather"),
     "clone_chain": ("repro_torch.kernels.clone_chain", "clone_chain_kernel"),
+    "paged_attention": ("repro_torch.kernels.paged_attention", "paged_attention_kernel"),
+    "paged_attention_delta": (
+        "repro_torch.kernels.paged_attention",
+        "paged_attention_delta_kernel",
+    ),
 }
 
 

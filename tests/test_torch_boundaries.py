@@ -26,6 +26,9 @@ from repro_torch.kernels.clone_chain import clone_chain_kernel, weights_cdf  # n
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
 from repro_torch.kernels.cow_write import cow_write  # noqa: E402
 from repro_torch.kernels.refcount_update import refcount_delta  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref  # noqa: E402
+from repro_torch.serving import crosscheck as cc  # noqa: E402
+from repro_torch.serving.crosscheck import LOGIT_TOL, card_against_cpu, smoke_program  # noqa: E402
 from repro_torch.smc.filters import FilterConfig, ParticleFilter, SSMDef  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -81,6 +84,19 @@ def test_unported_options_raise():
         tstore.create(tstore.StoreConfig(mode=CopyMode.LAZY, n=2, block_size=2, max_blocks=2), device="meta")
 
 
+# The plain version each ops module routes CPU tensors to.
+REF_NAMES = {"refcount_update": "refcount_delta_ref", "paged_attention_delta": "paged_attention_ref"}
+
+
+def test_crosscheck_on_the_cpu():
+    """The card-against-CPU check, run with the CPU in the card's place:
+    the same program twice on one path agrees to the bit."""
+    readings, engines = card_against_cpu("cpu")
+    assert readings["worst_abs_diff"] == 0.0
+    assert readings["logits"] == (cc.PROMPTS + cc.STEPS * cc.ROWS) * cc.SMOKE.padded_vocab
+    assert all(not e.oom for e in engines.values())
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -105,7 +121,7 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
 
     for name, (module, _) in dispatch.KNOWN_OPS.items():
         ops = importlib.import_module(module + ".ops")
-        ref_name = f"{name if name != 'refcount_update' else 'refcount_delta'}_ref"
+        ref_name = REF_NAMES.get(name, f"{name}_ref")
         monkeypatch.setattr(ops, ref_name, refuse(getattr(ops, ref_name)))
     dispatch.reset_launch_counts()
     ys = torch.randn(12)
@@ -117,6 +133,8 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
             tstore.materialize_batch(pf.store_cfg, res.store, torch.arange(256, device=cuda_device))
             if mode.is_lazy:
                 tstore.compact(pf.store_cfg, res.store)
+        for delta_cow in (False, True):
+            smoke_program(cuda_device, delta_cow)
     torch.cuda.synchronize()
     assert all(count > 0 for count in dispatch.launch_counts().values())
 
@@ -181,3 +199,89 @@ class TestKernelsOnCard:
         logw = torch.randn(1 << 20, generator=rnd.generator(0, cuda_device), device=cuda_device)
         first = weights_cdf(logw)
         assert all(torch.equal(first, weights_cdf(logw)) for _ in range(20))
+
+
+def paged_case(seed, dtype, rows=40, layers=3, bs=16, kvh=2, d=128, h=24, b=7, nb=6):
+    """Paged-attention inputs on strided layer views of a
+    ``[rows + 1, L, 2, bs, KVH, d]`` pool: NULL pages inside a row, a
+    zero-length row, ragged lengths, and delta pages whose clean slots
+    resolve through a shared parent.  Also returns the same pages as full
+    blocks (``flat_*``), which the whole-block variant reads."""
+    rng = np.random.default_rng(seed)
+    data = torch.as_tensor(rng.standard_normal((rows + 1, layers, 2, bs, kvh, d)).astype(np.float32))
+    tables = torch.as_tensor(rng.integers(0, rows // 2, (b, nb)).astype(np.int32))
+    tables[1, 2] = -1  # a NULL page inside the length
+    lengths = torch.as_tensor(rng.integers(1, nb * bs + 1, b).astype(np.int32))
+    lengths[0] = 0
+    lengths[2] = nb * bs
+    # Pages rows//2.. are delta children of the pages in the first half.
+    parent = torch.full((rows,), -1, dtype=torch.int32)
+    dirty = torch.zeros((rows, bs), dtype=torch.bool)
+    flat = data.clone()
+    for child in range(rows // 2, rows):
+        par = int(rng.integers(0, rows // 2))
+        parent[child] = par
+        dirty[child] = torch.as_tensor(rng.random(bs) < 0.3)
+        flat[child] = torch.where(dirty[child][None, None, :, None, None], data[child], data[par])
+        data[child] = torch.where(dirty[child][None, None, :, None, None], data[child], 0.0)
+    tables[3:, 3:] += rows // 2  # rows 3.. read delta pages in their tail
+    q = torch.as_tensor(rng.standard_normal((b, h, d)).astype(np.float32))
+    cast = [x.to(dtype) for x in (q, data, flat)]
+    return cast[0], cast[1], cast[2], tables, lengths, parent, dirty
+
+
+@pytest.mark.cuda
+class TestPagedAttentionOnCard:
+    """The paged-attention kernel against its plain version on the card, on
+    strided views of a starcoder2-3b-width pool (hd 128, G = 12); bf16 to
+    atol 1e-2, f32 to atol 1e-5 (sums in another order)."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("delta", [False, True])
+    def test_matches_plain_version(self, cuda_device, dtype, delta):
+        q, data, flat, tables, lengths, parent, dirty = paged_case(0, dtype)
+        q, data, tables, lengths, parent, dirty = (
+            x.to(cuda_device) for x in (q, data, tables, lengths, parent, dirty)
+        )
+        k_pool, v_pool = data[:, 1, 0], data[:, 1, 1]
+        kw = dict(parent=parent, dirty=dirty) if delta else {}
+        dispatch.reset_launch_counts()
+        got = paged_attention(q, k_pool, v_pool, tables, lengths, **kw)
+        want = paged_attention_ref(q, k_pool, v_pool, tables, lengths, **kw)
+        torch.cuda.synchronize()
+        op = "paged_attention_delta" if delta else "paged_attention"
+        assert dispatch.launch_counts()[op] == 1
+        atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+        assert not got[0].any()  # the zero-length row writes 0
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_variants_bit_identical_on_the_same_bytes(self, cuda_device, dtype):
+        q, data, flat, tables, lengths, parent, dirty = paged_case(1, dtype)
+        q, data, flat, tables, lengths, parent, dirty = (
+            x.to(cuda_device) for x in (q, data, flat, tables, lengths, parent, dirty)
+        )
+        delta = paged_attention(
+            q, data[:, 2, 0], data[:, 2, 1], tables, lengths, parent=parent, dirty=dirty
+        )
+        whole = paged_attention(q, flat[:, 2, 0], flat[:, 2, 1], tables, lengths)
+        assert torch.equal(delta, whole)
+
+    def test_engine_matches_cpu_path(self, cuda_device):
+        """The smoke engine on the card (kernels) against the CPU path
+        (plain versions), through the check ``chip_smoke.py`` runs: equal
+        tables, refcounts and lengths; logits within ``LOGIT_TOL`` of the
+        step's largest logit; delta on and off bit-identical on the card."""
+        readings, _ = card_against_cpu(cuda_device)
+        assert readings["worst_diff_over_step_max"] <= LOGIT_TOL
+
+    def test_compact_moves_bf16_pages_exactly(self, cuda_device):
+        """pool_compact at the serving block size: [L, 2, bs, KVH, hd] bf16
+        pages (491,520 bytes at starcoder2-3b) gathered as 32-bit words."""
+        rng = np.random.default_rng(4)
+        pool = torch.as_tensor(rng.standard_normal((9, 30, 2, 16, 2, 128)).astype(np.float32))
+        pool = pool.to(torch.bfloat16)
+        perm = torch.as_tensor(np.array([5, -1, 0, 7, 2], np.int32))
+        want = pool_compact(pool, perm)
+        got = pool_compact(pool.to(cuda_device), perm.to(cuda_device))
+        assert torch.equal(got.cpu(), want)

@@ -1,9 +1,11 @@
 """The port's kernel ops against the JAX reference, on the CPU.
 
-Each of the four ported ops runs its plain PyTorch version here (CPU
+Each of the four COW ops runs its plain PyTorch version here (CPU
 tensors) and must equal, bit for bit, both the reference's jnp oracle
 and its Pallas kernel in interpret mode, on the same numpy inputs —
-NULL entries, masked rows and duplicate ids included.  The CUDA kernels
+NULL entries, masked rows and duplicate ids included.  Paged attention's
+plain version, a float computation, is held to both TPU kernels to a
+stated tolerance.  The CUDA kernels
 themselves are compared with these plain versions on the card by
 ``chip_smoke.py`` and by the ``cuda``-marked tests in
 ``test_torch_boundaries.py``.
@@ -24,9 +26,11 @@ from repro.kernels.clone_chain.ref import clone_chain_ref as jax_clone_chain_ref
 from repro.kernels.cow_gather import cow_gather as jax_cow_gather  # noqa: E402
 from repro.kernels.cow_gather import pool_compact as jax_pool_compact  # noqa: E402
 from repro.kernels.cow_write import cow_write as jax_cow_write  # noqa: E402
+from repro.kernels.paged_attention import paged_attention as jax_paged_attention  # noqa: E402
 from repro.kernels.refcount_update import refcount_update as jax_refcount_update  # noqa: E402
 from repro.kernels.refcount_update.kernel import refcount_delta_pallas  # noqa: E402
 from repro.kernels.refcount_update.ref import refcount_delta_ref as jax_delta_ref  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.clone_chain import (  # noqa: E402
     clone_chain_kernel,
@@ -34,6 +38,7 @@ from repro_torch.kernels.clone_chain import (  # noqa: E402
 )
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
 from repro_torch.kernels.cow_write import cow_write  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels.refcount_update import (  # noqa: E402
     refcount_delta,
     refcount_update,
@@ -157,6 +162,20 @@ class TestCowGather:
         eq(got, want)
         assert got.shape == (target + 1, 4, 1) and not got[target].any()
 
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_pool_compact_at_kv_page_size(self, dtype):
+        """Pages of the serving pool, [L, 2, bs, KVH, hd] (491,520 bytes at
+        starcoder2-3b in bf16): bf16 pages move as 32-bit words."""
+        rng = np.random.default_rng(3)
+        data = rng.standard_normal((7, 30, 2, 16, 2, 128)).astype(np.float32)
+        data[6] = 0
+        jdata = jnp.asarray(data, dtype=dtype)
+        perm = np.array([4, -1, 0, 5, 2], np.int32)
+        want = jax_pool_compact(jdata, jnp.asarray(perm), use_kernel=False)
+        got = pool_compact(convert._tensor(np.asarray(jdata), "cpu"), t(perm))
+        assert got.dtype == getattr(torch, dtype)
+        eq(got.float(), np.asarray(want).astype(np.float32))
+
 
 def chain_case(seed, n, mb=5, nb=60):
     rng = np.random.default_rng(seed)
@@ -209,7 +228,7 @@ class TestDispatch:
         for name in dispatch.KNOWN_OPS:
             assert isinstance(dispatch.get_op(name).launches, int)
         with pytest.raises(ValueError):
-            dispatch.get_op("paged_attention")
+            dispatch.get_op("flash_attention")
 
     def test_route_policy(self):
         cpu = torch.zeros(2)
@@ -228,4 +247,86 @@ class TestDispatch:
         cow_gather(t(data), t(src))
         cum, u, tables, nb = chain_case(1, 16)
         clone_chain_kernel(t(cum), t(u), t(tables), nb)
+        q, k_pool, v_pool, ptables, lengths, parent, dirty = paged_case(0)
+        pargs = [t(x) for x in (q, k_pool, v_pool, ptables, lengths)]
+        paged_attention(*pargs)
+        paged_attention(*pargs, parent=t(parent), dirty=t(dirty))
         assert dispatch.launch_counts() == {name: 0 for name in dispatch.KNOWN_OPS}
+
+
+def paged_case(seed, b=6, h=6, kvh=2, d=16, bs=4, nb=5, rows=24):
+    """Paged-attention inputs at the smoke width: NULL entries (one inside
+    a row's length), a zero-length row, ragged lengths, and delta pages
+    (the second half of the pool) whose clean slots read a parent that
+    other rows' tables also name."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k_pool = rng.standard_normal((rows + 1, bs, kvh, d)).astype(np.float32)
+    v_pool = rng.standard_normal((rows + 1, bs, kvh, d)).astype(np.float32)
+    tables = rng.integers(0, rows, (b, nb)).astype(np.int32)
+    tables[1, 1] = -1
+    tables[4, 3:] = -1
+    tables[2, 0] = tables[3, 0] = rows // 2  # a delta page, twice
+    tables[3, 1] = 3  # ... and its parent, read directly
+    lengths = rng.integers(1, nb * bs + 1, b).astype(np.int32)
+    lengths[0] = 0
+    lengths[5] = nb * bs
+    parent = np.full(rows, -1, np.int32)
+    parent[rows // 2 :] = rng.integers(0, rows // 2, rows - rows // 2)
+    parent[rows // 2] = 3
+    dirty = rng.random((rows, bs)) < 0.4
+    dirty[: rows // 2] = False
+    return q, k_pool, v_pool, tables, lengths, parent, dirty
+
+
+class TestPagedAttention:
+    """The plain version against the JAX oracle (rows with length > 0; the
+    oracle returns V's mean on an empty row, the TPU kernels 0) and against
+    both Pallas kernels in interpret mode on every row.  Float sums in
+    another order: atol 1e-5."""
+
+    @pytest.mark.parametrize("seed", range(3))
+    @pytest.mark.parametrize("delta", [False, True])
+    def test_matches_reference(self, seed, delta):
+        q, k_pool, v_pool, tables, lengths, parent, dirty = paged_case(seed)
+        jargs = [jnp.asarray(x) for x in (q, k_pool, v_pool, tables, lengths)]
+        targs = [t(x) for x in (q, k_pool, v_pool, tables, lengths)]
+        jkw = dict(parent=jnp.asarray(parent), dirty=jnp.asarray(dirty)) if delta else {}
+        tkw = dict(parent=t(parent), dirty=t(dirty)) if delta else {}
+        got = paged_attention(*targs, **tkw).numpy()
+        oracle = np.asarray(jax_paged_attention(*jargs, **jkw, use_kernel=False))
+        kernel = np.asarray(jax_paged_attention(*jargs, **jkw, use_kernel=True, interpret=True))
+        live = lengths > 0
+        np.testing.assert_allclose(got[live], oracle[live], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=0)
+        assert not got[0].any()  # zero-length row
+
+    def test_variants_agree_on_full_pages(self):
+        """With every parent NULL the delta variant reads what the whole-page
+        variant reads, so the two are bit-identical."""
+        q, k_pool, v_pool, tables, lengths, _, dirty = paged_case(5)
+        args = [t(x) for x in (q, k_pool, v_pool, tables, lengths)]
+        parent = torch.full((k_pool.shape[0] - 1,), -1, dtype=torch.int32)
+        delta = paged_attention(*args, parent=parent, dirty=t(dirty))
+        assert torch.equal(delta, paged_attention(*args))
+
+    def test_strided_pool_views(self):
+        """The engine passes one layer's slice of the [rows, L, 2, bs, KVH, d]
+        pool; the result is that of the same pages made contiguous."""
+        q, k_pool, v_pool, tables, lengths, _, _ = paged_case(6)
+        pool = torch.stack([t(k_pool), t(v_pool)], dim=1)[:, None].repeat(1, 3, 1, 1, 1, 1)
+        views = paged_attention(t(q), pool[:, 1, 0], pool[:, 1, 1], t(tables), t(lengths))
+        dense = paged_attention(t(q), t(k_pool), t(v_pool), t(tables), t(lengths))
+        assert torch.equal(views, dense)
+
+    def test_rejects_bad_inputs(self):
+        q, k_pool, v_pool, tables, lengths, parent, dirty = paged_case(0)
+        args = [t(x) for x in (q, k_pool, v_pool, tables, lengths)]
+        with pytest.raises(TypeError):
+            paged_attention(args[0].double(), *args[1:])
+        with pytest.raises(ValueError):
+            paged_attention(*args[:3], args[3][:-1], args[4])
+        with pytest.raises(ValueError):
+            paged_attention(args[0], args[1][..., :8], args[2][..., :8], *args[3:])
+        with pytest.raises(TypeError):
+            paged_attention(*args, parent=t(parent).long(), dirty=t(dirty))
