@@ -60,6 +60,28 @@ Phases (any failed check raises, and the script exits non-zero):
    repro_torch.launch.serve --full`` (starcoder2-3b at full width, 4
    requests x 32 greedy tokens), with the counters set to 0 just before:
    ``paged_attention`` launched, 4 continuations of 33 tokens returned.
+10. The store's sub-block delta COW at the filter's scale, with the
+    counters set to 0 just before and read just after: the LGSSM
+    (N = 65,536, T = 1,024) driven through the store API (LAZY_SR,
+    block_size 8, record ``(1,)``, auto pool; each generation
+    ``store.clone_chain`` on the log-weights, then ``store.append``),
+    once with ``delta_cow`` off and once on, from one generator seed.
+    Checks, mid-block (T/2 + 4 items) and at the end: ``materialize_batch``
+    of all N (valid prefix) and ``read_at`` bit-equal between the runs;
+    ``oom`` False; the pool's invariants; delta blocks made; ``cow_write``
+    and ``cow_write_delta`` launched.  Prints the bytes per append each
+    write kernel must move.  Then ``cow_write_delta`` against its plain
+    version on a mid-block append's own routing: exact.
+11. The three kernels no path of the system calls yet, reached through
+    the registry at the widths of the models the repository configures,
+    with the counters set to 0 just before and read just after:
+    ``resample`` (N = 65,536, phase 2's final LAZY weights; exact),
+    ``flash_attention`` (starcoder2-3b: 24 heads over 2 KV heads, d 128,
+    bf16, B = 4 x S = 512 and B = 1 x S = 4,096; gemma3-12b: 16 heads
+    over 8, d 256, window 1,024, S = 4,096; bf16 atol 2e-2) and
+    ``ssd_scan`` (mamba2-130m: 24 heads, P 64, N 128, chunk 64, f32, B = 4
+    x S = 2,048; rtol/atol 2e-4), each against its plain version on the
+    card, with its times and bound.
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``
 and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
@@ -92,10 +114,26 @@ MEMORY_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12), ("
 # The kernels the particle filter's path runs (the serving path's are
 # checked in serve_phases).
 FILTER_OPS = ("cow_write", "refcount_update", "cow_gather", "clone_chain")
-# Dense float32 peak outside the tensor cores, and dense bf16 tensor-core
-# peak, H100 SXM.
+# Dense float32 peak outside the tensor cores, and dense bf16 and TF32
+# tensor-core peaks, H100 SXM.
 F32_RATE = 67e12
 BF16_RATE = 989e12
+TF32_RATE = 495e12
+# Phase 10: the delta store's block size, and the mid-block generation at
+# which the two runs are also compared (delta blocks live there).
+DELTA_BLOCK = 8
+DELTA_MID = N_STEPS // 2 + 4
+# Phase 11: flash attention at starcoder2-3b's widths (24 heads over 2 KV
+# heads, d 128) at two prefill shapes and at gemma3-12b's local layers (16
+# over 8, d 256, window 1,024): (name, B, S, H, KVH, d, window), bf16.
+FLASH_CASES = (
+    ("starcoder2-3b B=4 S=512", 4, 512, 24, 2, 128, 0),
+    ("starcoder2-3b B=1 S=4096", 1, 4096, 24, 2, 128, 0),
+    ("gemma3-12b local B=1 S=4096", 1, 4096, 16, 8, 256, 1024),
+)
+# The SSD scan at mamba2-130m's widths (d_inner 1536 = 24 heads of 64,
+# state 128, chunk 64), f32: (B, S, H, P, N, chunk).
+SSD_SHAPE = (4, 2048, 24, 64, 128, 64)
 
 
 def require(ok: bool, what: str) -> None:
@@ -462,6 +500,311 @@ def serve_phases(dev, rate):
     return rows
 
 
+def write_bytes(data, src, dst, pos, keep=None) -> torch.Tensor:
+    """Bytes one COW write must move (a 0-dim device tensor): the ids of
+    every row (and its keep bytes); for each row not on the dump row, its
+    value, the source items it keeps (all but the written one for the
+    whole-block write; the kept ones but the written one under delta), and
+    the block it writes."""
+    nb, bs = data.shape[0] - 1, data.shape[1]
+    item = data[0, 0].numel() * data.element_size()
+    live = dst != nb
+    if keep is None:
+        kept = torch.full_like(dst, bs - 1)
+    else:
+        slot = torch.arange(bs, device=dst.device)[None, :]
+        kept = (keep.bool() & (slot != pos[:, None].long())).sum(1)
+    per_row = torch.where(live, item + kept * item + bs * item, 0).long()
+    meta = dst.numel() * (12 + (0 if keep is None else keep.shape[1] * keep.element_size()))
+    return per_row.sum() + meta
+
+
+def delta_store_phase(dev, rate, ys):
+    """Phase 10: the store's sub-block delta COW at the filter's scale,
+    against the whole-block store on the same draws.  Returns the
+    ``cow_write_delta`` row."""
+    from repro_torch import random as rnd
+    from repro_torch.core import pool as pool_lib
+    from repro_torch.core import store as store_lib
+    from repro_torch.core.config import CopyMode
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.cow_write import cow_write_delta, cow_write_delta_ref
+
+    n, steps = N_PARTICLES, N_STEPS
+    ys_t = torch.as_tensor(ys, device=dev)
+    mid_pos = (0, DELTA_MID // 2, DELTA_MID - 3, DELTA_MID - 1)
+    end_pos = (0, steps // 2 + 1, steps - 5, steps - 1)
+    captured = {}
+    moved = {}
+    writers = {name: getattr(store_lib, name) for name in ("cow_write", "cow_write_delta")}
+
+    def counting(name):
+        # Sums the bytes each call must move, on the device (no sync), and
+        # keeps the arguments of the last call for the kernel check below.
+        def wrapped(data, src, dst, pos, values, *keep):
+            moved[name] = moved.get(name, 0) + write_bytes(data, src, dst, pos, *keep)
+            captured[name] = (src, dst, pos, values, *keep)
+            return writers[name](data, src, dst, pos, values, *keep)
+        return wrapped
+
+    def valid_prefix(cfg, store):
+        trajs = store_lib.materialize_batch(cfg, store, torch.arange(n, device=dev))
+        live = torch.arange(cfg.capacity, device=dev)[None, :] < store.lengths[:, None]
+        return torch.where(live[..., None], trajs, 0.0)
+
+    def run(delta):
+        cfg = store_lib.StoreConfig(
+            mode=CopyMode.LAZY_SR, n=n, block_size=DELTA_BLOCK,
+            max_blocks=-(-steps // DELTA_BLOCK), item_shape=(1,), delta_cow=delta,
+        )
+        store = store_lib.create(cfg, device=dev)
+        gen = rnd.generator(SEED + 10, dev)
+        x = rnd.normal(gen, (n,))
+        logw = None
+        delta_blocks = torch.zeros((), dtype=torch.int64, device=dev)
+        out = {"cfg": cfg, "wall_s": 0.0}
+        for name, fn in writers.items():
+            setattr(store_lib, name, counting(name))
+        moved.clear()
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for step in range(steps):
+                if logw is not None:
+                    store, anc = store_lib.clone_chain(cfg, store, gen, logw)
+                    x = x[anc.long()]
+                x = A * x + math.sqrt(Q) * rnd.normal(gen, (n,))
+                logw = -0.5 * ((ys_t[step] - x) ** 2 / R + math.log(2 * math.pi * R))
+                store = store_lib.append(cfg, store, x[:, None])
+                delta_blocks = torch.maximum(delta_blocks, (store.pool.parent >= 0).sum())
+                if step + 1 == DELTA_MID:
+                    torch.cuda.synchronize()
+                    out["wall_s"] += time.perf_counter() - t
+                    out["mid"] = valid_prefix(cfg, store)
+                    out["mid_reads"] = [store_lib.read_at(cfg, store, p) for p in mid_pos]
+                    if delta:
+                        out["routing"] = captured["cow_write_delta"]
+                        out["mid_delta_blocks"] = int((store.pool.parent >= 0).sum())
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+            torch.cuda.synchronize()
+            out["wall_s"] += time.perf_counter() - t
+        finally:
+            for name, fn in writers.items():
+                setattr(store_lib, name, fn)
+        name = "cow_write_delta" if delta else "cow_write"
+        out["bytes_per_append"] = int(moved[name]) / steps
+        out["final"] = valid_prefix(cfg, store)
+        out["reads"] = [store_lib.read_at(cfg, store, p) for p in end_pos]
+        out["store"] = store
+        out["delta_blocks"] = int(delta_blocks)
+        require(not bool(store_lib.oom_flag(cfg, store)), f"delta_cow={delta}: oom is False")
+        require(bool(pool_lib.free_stack_consistent(store.pool)), f"delta_cow={delta}: free stack consistent")
+        require(bool(pool_lib.refcount_matches_tables(store.pool, store.tables)),
+                f"delta_cow={delta}: refcounts match the tables and parents")
+        print(
+            f"delta store delta_cow={delta} N={n} T={steps} block_size={DELTA_BLOCK}: "
+            f"wall_s={out['wall_s']:.3f} ({out['wall_s'] / steps * 1e3:.3f} ms per generation) "
+            f"peak_blocks={int(store.peak_blocks)} pool_blocks={store.pool.num_blocks} "
+            f"most delta blocks live={out['delta_blocks']} "
+            f"{name} bytes per append {out['bytes_per_append']:.1f} oom=False",
+            flush=True,
+        )
+        return out
+
+    dispatch.reset_launch_counts()
+    whole = run(False)
+    delta = run(True)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    print(f"delta store launches (both runs): {json.dumps(launches)}", flush=True)
+    for op in ("cow_write", "cow_write_delta", "clone_chain", "cow_gather"):
+        require(launches[op] > 0, f"kernel {op} launched on the delta store's path ({launches[op]})")
+    require(delta["delta_blocks"] > 0 and delta["mid_delta_blocks"] > 0,
+            f"delta blocks were made ({delta['delta_blocks']}, {delta['mid_delta_blocks']} mid-block)")
+    require(whole["delta_blocks"] == 0, "the whole-block store makes no delta blocks")
+    for key in ("mid", "final"):
+        require(torch.equal(whole[key], delta[key]),
+                f"{key}: materialize_batch of all N equal with delta COW on and off")
+    for a, b in zip(whole["mid_reads"] + whole["reads"], delta["mid_reads"] + delta["reads"], strict=True):
+        require(torch.equal(a, b), "read_at equal with delta COW on and off")
+    print(f"delta store: delta COW on and off bit-equal at N={n} (materialize_batch mid-block at "
+          f"{DELTA_MID} and at {steps} items, read_at at 8 positions); bytes per append: "
+          f"cow_write {whole['bytes_per_append']:.1f}, cow_write_delta {delta['bytes_per_append']:.1f}",
+          flush=True)
+
+    # cow_write_delta against its plain version, on the mid-block append's
+    # own routing (copy rows keeping their dirty slots, copy rows keeping
+    # none, in-place rows) over the delta run's final pool.
+    src, dst, pos, values, keep = delta["routing"]
+    data = delta["store"].pool.data
+    nb = data.shape[0] - 1
+    got = cow_write_delta(data.clone(), src, dst, pos, values, keep)
+    want = cow_write_delta_ref(data.clone(), src, dst, pos, values, keep)
+    want[nb].zero_()
+    err = (got.double() - want.double()).abs().max().item()
+    require(err == 0.0, f"cow_write_delta: kernel equals its plain version (max |diff| {err})")
+    copy_rows = int(((src != dst) & (dst != nb)).sum())
+    empty_rows = int((src == nb).sum() - (dst == nb).sum())
+    scratch_k, scratch_p = data.clone(), data.clone()
+
+    def plain():
+        cow_write_delta_ref(scratch_p, src, dst, pos, values, keep)
+        scratch_p[-1].zero_()
+
+    ms = device_ms(lambda: cow_write_delta(scratch_k, src, dst, pos, values, keep))
+    plain_ms = device_ms(plain)
+    call_ms = time_ms(lambda: cow_write_delta(scratch_k, src, dst, pos, values, keep))
+    moved_call = int(write_bytes(data, src, dst, pos, keep))
+    print(f"kernel cow_write_delta: exact on an append of {n} rows ({copy_rows} copy rows, "
+          f"{empty_rows} of them reading nothing); {ms:.4f} ms on the device, {call_ms:.4f} ms per "
+          f"call (plain {plain_ms:.4f} ms); {moved_call} bytes", flush=True)
+    return {
+        "name": "cow_write_delta", "route": "cuda", "source": "src/repro_torch/csrc/cow_write.cu",
+        "replaces": "src/repro/kernels/cow_write/kernel.py:76",
+        "launches": launches["cow_write_delta"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": moved_call / rate * 1e3, "bound_by": "bytes", "library_ms": None,
+        "call_ms": call_ms,
+    }
+
+
+def attention_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) attention over s positions
+    computes."""
+    i = np.arange(s)
+    return int(np.minimum(i + 1, window if window > 0 else s).sum())
+
+
+def registry_phase(dev, rate, logw):
+    """Phase 11: resample, flash_attention and ssd_scan through the
+    registry at full width, each against its plain version on the card.
+    Returns their rows."""
+    from repro_torch import random as rnd
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.clone_chain import fixed_order_cumsum
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.resample import resample_systematic_kernel, resample_systematic_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+
+    gen = rnd.generator(SEED + 11, dev)
+    n = logw.shape[0]
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    flash_in = [(name, (randn(b, s, h, d, dtype=bf16), randn(b, s, kvh, d, dtype=bf16),
+                        randn(b, s, kvh, d, dtype=bf16)), w) for name, b, s, h, kvh, d, w in FLASH_CASES]
+    sb, ss, sh, sp, sn, sq = SSD_SHAPE
+    ssd_in = (randn(sb, ss, sh, sp), torch.nn.functional.softplus(randn(sb, ss, sh)),
+              -torch.exp(0.3 * randn(sh)), randn(sb, ss, sn), randn(sb, ss, sn))
+
+    # -- the path: each op once through the registry --------------------------
+    dispatch.reset_launch_counts()
+    resample_systematic_kernel(gen, logw)
+    flash = dispatch.get_op("flash_attention")
+    for _, qkv, w in flash_in:
+        flash(*qkv, window=w)
+    dispatch.get_op("ssd_scan")(*ssd_in, chunk=sq)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    print(f"registry launches: {json.dumps(launches)}", flush=True)
+    for op in ("resample", "flash_attention", "ssd_scan"):
+        require(launches[op] > 0, f"kernel {op} launched through the registry ({launches[op]})")
+
+    rows = []
+    # resample: the comb on phase 2's final weights.
+    comb = dispatch.get_op("resample")
+    w = torch.softmax(logw, 0)
+    cum = fixed_order_cumsum(w)
+    cum = cum / cum[-1]
+    u = rnd.uniform(gen, (1,))
+    got, want = comb(cum, u), resample_systematic_ref(cum, u)
+    require(torch.equal(got, want), "resample: kernel equals its plain version")
+    sorted_ok = bool((got[1:] >= got[:-1]).all()) and int(got.min()) >= 0 and int(got.max()) < n
+    require(sorted_ok, "resample: ancestors sorted and in range")
+    bytes_ms = (8 * n + 4) / rate * 1e3
+    ops_ms = n * (math.ceil(math.log2(n)) + 2) / F32_RATE * 1e3
+    row = {
+        "name": "resample", "route": "cuda", "source": "src/repro_torch/csrc/resample.cu",
+        "replaces": "src/repro/kernels/resample/kernel.py:44", "launches": launches["resample"],
+        "max_abs_err": 0.0, "ms": device_ms(lambda: comb(cum, u)),
+        "plain_ms": device_ms(lambda: resample_systematic_ref(cum, u)),
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": device_ms(lambda: torch.searchsorted(cum, (torch.arange(n, device=dev) + u) / n)),
+        "call_ms": time_ms(lambda: comb(cum, u)),
+    }
+    rows.append(row)
+    print(f"kernel resample: exact at N={n} ({int(torch.unique(got).numel())} distinct ancestors); "
+          f"{row['ms']:.4f} ms on the device (plain {row['plain_ms']:.4f}, searchsorted "
+          f"{row['library_ms']:.4f})", flush=True)
+
+    # flash_attention: each shape against the plain version (bf16 atol 2e-2).
+    shapes = []
+    for name, (q, k, v), w in flash_in:
+        b, s, h, d = q.shape
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = flash(q, k, v, window=w)
+        want = flash_attention_ref(qt, kt, vt, window=w).transpose(1, 2)
+        err = (got.float() - want.float()).abs().max().item()
+        require(bool(torch.isfinite(got).all()) and got.shape == q.shape, f"flash {name}: finite output")
+        require(err <= 2e-2, f"flash_attention {name}: within atol 2e-2 of its plain version ({err})")
+        moved = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        flops = 4 * d * attention_pairs(s, w) * b * h
+        bytes_ms, ops_ms = moved / rate * 1e3, flops / BF16_RATE * 1e3
+        library_ms = None
+        if w == 0:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        case = {
+            "shape": name, "max_abs_err": err, "ms": device_ms(lambda: flash(q, k, v, window=w)),
+            "plain_ms": device_ms(lambda: flash_attention_ref(qt, kt, vt, window=w), reps=5, warmup=1),
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+        }
+        shapes.append(case)
+        print(f"kernel flash_attention {name}: max |kernel - plain| {err!r}; {case['ms']:.4f} ms "
+              f"({flops / case['ms'] / 1e9:.2f} TFLOP/s), plain {case['plain_ms']:.4f} ms, SDPA "
+              f"{library_ms if library_ms is None else round(library_ms, 4)} ms, bound "
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']}; {flops} flops, {moved} bytes)", flush=True)
+        del got, want
+    head = shapes[1]  # starcoder2-3b at S = 4,096: the largest, with a library call
+    rows.append({
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
+        "launches": launches["flash_attention"], "max_abs_err": max(c["max_abs_err"] for c in shapes),
+        **{key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "headline_shape": head["shape"], "shapes": shapes,
+    })
+    torch.cuda.empty_cache()
+
+    # ssd_scan at mamba2-130m's widths (f32, rtol/atol 2e-4).
+    ssd = dispatch.get_op("ssd_scan")
+    y, hf = ssd(*ssd_in, chunk=sq)
+    yr, hr = ssd_scan_ref(*ssd_in, chunk=sq)
+    for got, want, what in ((y, yr, "y"), (hf, hr, "final state")):
+        require(bool(torch.isfinite(got).all()), f"ssd_scan {what}: finite")
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4, msg=f"ssd_scan {what} vs plain")
+    err = max((y - yr).abs().max().item(), (hf - hr).abs().max().item())
+    nc = ss // sq
+    flops = 2 * sb * sh * nc * (sq * (sq + 1) // 2 * (sn + sp) + 2 * sq * sp * sn)
+    moved = 4 * (sum(t.numel() for t in ssd_in) + y.numel() + hf.numel())
+    bytes_ms, ops_ms = moved / rate * 1e3, flops / TF32_RATE * 1e3
+    row = {
+        "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:92", "launches": launches["ssd_scan"],
+        "max_abs_err": err, "ms": device_ms(lambda: ssd(*ssd_in, chunk=sq)),
+        "plain_ms": device_ms(lambda: ssd_scan_ref(*ssd_in, chunk=sq), reps=5, warmup=1),
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+    rows.append(row)
+    print(f"kernel ssd_scan: max |kernel - plain| {err!r} (y up to {yr.abs().max().item():.2f}); "
+          f"{row['ms']:.4f} ms on the device, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {flops} flops, {moved} bytes)", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -707,6 +1050,7 @@ def main() -> int:
         bytes_moved=n * 4 + 4 + 2 * tables.numel() * 4 + n * 4 + nb * 5,
         ops=n * (math.ceil(math.log2(n)) + 2),
     )
+    final_logw = logw.clone()  # phase 2's final LAZY weights, for phase 11
     del got, want, results, lazy
 
     # -- 4. the card against the CPU path, same draws ---------------------
@@ -732,8 +1076,19 @@ def main() -> int:
     print(f"small run N={small_n} T={small_t}: card agrees with the CPU path "
           f"(log_evidence {small['cuda'][1]!r} vs {small['cpu'][1]!r})", flush=True)
 
+    # -- 10. the store's delta COW at the filter's scale -------------------
+    delta_row = delta_store_phase(dev, rate, ys)
+    torch.cuda.empty_cache()
+
+    # -- 11. the registry's other kernels at full width ---------------------
+    registry_rows = registry_phase(dev, rate, final_logw)
+    torch.cuda.empty_cache()
+
     # -- 6-9. serving starcoder2-3b at full width -------------------------
     rows += serve_phases(dev, rate)
+    rows.insert(1, delta_row)
+    rows[5:5] = registry_rows[:1]
+    rows += registry_rows[1:]
 
     # -- 5. where a generation's time goes (a traced LAZY_SR run), last: a
     # trace of ~4e5 kernels costs later traces some of their records.

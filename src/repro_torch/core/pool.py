@@ -70,8 +70,8 @@ class BlockPool(NamedTuple):
       free_top:   0-dim int32 — live entries in ``free_stack``.
       oom:        0-dim bool, sticky: an allocation ever failed.
       parent:     ``[num_blocks] int32`` — delta-COW backing block (the
-                  KV cache's ``delta_cow``; all NULL under the store,
-                  whose delta COW is not ported yet).
+                  store's and the KV cache's ``delta_cow``; all NULL
+                  without it).
       dirty:      ``[num_blocks, npos] bool`` — delta-COW slot mask.
     """
 

@@ -23,9 +23,7 @@ Differences from the reference:
   Pool bookkeeping (refcount, free stack, flags) is never mutated in
   place.
 * ``strict_oom`` is a host-side ``RuntimeError``.
-* ``delta_cow=True`` raises ``NotImplementedError`` (its
-  ``cow_write_delta`` kernel is not ported yet), and
-  ``import_trajectories`` (the sharded store's) is not ported.
+* ``import_trajectories`` (the sharded store's) is not ported.
 * The kernels run when the store lives on a CUDA device; there is no
   ``use_kernels`` switch.
 """
@@ -43,7 +41,7 @@ from repro_torch.core.config import CopyMode
 from repro_torch.core.pool import NULL_BLOCK, BlockPool
 from repro_torch.kernels.clone_chain import clone_chain as clone_chain_op
 from repro_torch.kernels.cow_gather import cow_gather
-from repro_torch.kernels.cow_write import cow_write
+from repro_torch.kernels.cow_write import cow_write, cow_write_delta
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.refcount_update import refcount_update
 
@@ -84,17 +82,15 @@ class StoreConfig:
     item_shape: Tuple[int, ...] = ()
     dtype: str = "float32"
     num_blocks: int = 0  # pool capacity; 0 = auto
-    delta_cow: bool = False  # sub-block delta COW: not ported yet
+    # Sub-block delta COW (DESIGN.md §3.2): a write to a shared block
+    # copies only the slots the writer had materialized (its dirty mask)
+    # plus the written item; the rest resolve through ``pool.parent``.
+    # Observationally equal to the whole-block path (valid-prefix
+    # trajectories, reads, lengths); the pool's leaves differ.
+    delta_cow: bool = False
     # trajectory / materialize / materialize_batch raise RuntimeError on
     # a pool whose sticky oom flag is set.
     strict_oom: bool = False
-
-    def __post_init__(self) -> None:
-        if self.delta_cow:
-            raise NotImplementedError(
-                "delta_cow needs the cow_write_delta kernel, which the "
-                "PyTorch port does not have yet"
-            )
 
     @property
     def capacity(self) -> int:
@@ -227,11 +223,25 @@ def _write_impl(
         shared = pool.refcount[cur_safe] > 1
     need_copy = (~fresh) & shared & mask
     need_block = fresh | need_copy
+    if cfg.delta_cow:
+        # Read before any refcount traffic: sub_refs below may free cur
+        # and clear its delta bookkeeping.  (Indexing copies, so later
+        # pool updates cannot reach these.)
+        dirty_cur = pool.dirty[cur_safe]  # [n, block_size]
+        par_cur = pool.parent[cur_safe]
+        # The new delta child's backing block: cur itself when cur is
+        # full, else cur's parent (delta depth stays <= 1).
+        root = torch.where(need_copy & (par_cur >= 0), par_cur, cur_bid)
 
     pool, new_bid = pool_lib.alloc(pool, n, commit=need_block)
     # Transient peak: COW sources and their copies coexist until the
     # writer's reference is released below.
     peak = torch.maximum(store.peak_blocks, pool_lib.blocks_in_use(pool))
+    if cfg.delta_cow:
+        # The child's reference on its parent goes in before the
+        # writer's reference on cur comes out, so a parent shared only
+        # through cur never dips to refcount 0 in between.
+        pool = pool_lib.add_refs(pool, torch.where(need_copy, root, NULL_BLOCK))
     pool = pool_lib.sub_refs(pool, torch.where(need_copy, cur_bid, NULL_BLOCK))
 
     bid = torch.where(need_block, new_bid, cur_bid)
@@ -243,7 +253,34 @@ def _write_impl(
     # each its own copy.
     dst = torch.where(mask & (bid >= 0), bid, pool.num_blocks)
     src = torch.where(need_copy, cur_bid, dst)
-    cow_write(pool.data, src, dst, pos, values.reshape(n, *cfg.item_shape))
+    values = values.reshape(n, *cfg.item_shape)
+    if not cfg.delta_cow:
+        cow_write(pool.data, src, dst, pos, values)
+        return store._replace(pool=pool, lengths=lengths, peak_blocks=peak)
+
+    # Sub-block delta COW.  A copy row keeps only the slots cur had
+    # materialized (its dirty mask; none when cur is full: the sparse
+    # win); in-place and fresh rows keep everything.  Copy rows with
+    # nothing to keep read the dump row instead of their source.
+    keep = torch.where(need_copy[:, None], dirty_cur, True)
+    src = torch.where(need_copy & ~keep.any(1), pool.num_blocks, src)
+    cow_write_delta(pool.data, src, dst, pos, values, keep)
+    # Dirty/parent bookkeeping of rows whose block is now a delta block:
+    # fresh blocks are full (no parent), COW rows attach to root,
+    # in-place rows keep their parent.  A mask that fills up turns the
+    # child back into a full block: parent and mask cleared, the parent
+    # reference released.
+    pa = torch.where(need_copy, root, torch.where(fresh, NULL_BLOCK, par_cur))
+    mark = mask & (pa >= 0)
+    slots = torch.arange(cfg.block_size, dtype=I32, device=dev)
+    new_dirty = dirty_cur | (slots[None, :] == pos[:, None])
+    deg = mark & new_dirty.all(1)
+    dscat = torch.where(mark, bid, pool.num_blocks)
+    pool = pool._replace(
+        dirty=pool_lib._set(pool.dirty, dscat, torch.where(deg[:, None], False, new_dirty)),
+        parent=pool_lib._set(pool.parent, dscat, torch.where(deg, NULL_BLOCK, pa)),
+    )
+    pool = pool_lib.sub_refs(pool, torch.where(deg, pa, NULL_BLOCK))
     return store._replace(pool=pool, lengths=lengths, peak_blocks=peak)
 
 
@@ -269,7 +306,11 @@ def _clone_bookkeeping(
         do_freeze=cfg.mode is CopyMode.LAZY,
     )
     stack, top = pool_lib.push_free_mask(pool.free_stack, pool.free_top, freed)
-    return pool._replace(refcount=refcount, frozen=frozen, free_stack=stack, free_top=top)
+    pool = pool._replace(refcount=refcount, frozen=frozen, free_stack=stack, free_top=top)
+    if cfg.delta_cow:
+        # Freed delta children release their parent reference.
+        pool = pool_lib.release_parents(pool, freed)
+    return pool
 
 
 def clone(
@@ -316,6 +357,8 @@ def clone_chain(
     frozen = pool.frozen | member if cfg.mode is CopyMode.LAZY else pool.frozen
     stack, top = pool_lib.push_free_mask(pool.free_stack, pool.free_top, freed)
     pool = pool._replace(refcount=refcount, frozen=frozen, free_stack=stack, free_top=top)
+    if cfg.delta_cow:
+        pool = pool_lib.release_parents(pool, freed)
     store = store._replace(
         pool=pool, tables=new_tables, lengths=store.lengths[ancestors.long()]
     )
@@ -376,11 +419,29 @@ def read_at(
     bs = cfg.block_size
     bid = store.tables[rows, positions // bs]
     safe = torch.where(bid >= 0, bid, 0).long()
-    return store.pool.data[safe, positions % bs]
+    out = store.pool.data[safe, positions % bs]
+    if cfg.delta_cow:
+        # Non-dirty slots of a delta block resolve through the parent.
+        res = pool_lib.parent_or_self(store.pool, bid)
+        base = store.pool.data[torch.where(res >= 0, res, 0).long(), positions % bs]
+        d = store.pool.dirty[safe, positions % bs] & (bid >= 0)
+        out = torch.where(_expand(d, out.dim()), out, base)
+    return out
 
 
 def read_last(cfg: StoreConfig, store: ParticleStore) -> torch.Tensor:
     return read_at(cfg, store, torch.clamp(store.lengths - 1, min=0))
+
+
+def _delta_resolve(
+    pool: BlockPool, tab_flat: torch.Tensor, blocks: torch.Tensor
+) -> torch.Tensor:
+    """Fill the non-dirty slots of gathered blocks
+    (``cow_gather(pool.data, tab_flat)``) from their parents.  Full
+    blocks gather themselves twice; NULL entries stay zero."""
+    base = cow_gather(pool.data, pool_lib.parent_or_self(pool, tab_flat).contiguous())
+    d = pool.dirty[torch.where(tab_flat >= 0, tab_flat, 0).long()] & (tab_flat >= 0)[:, None]
+    return torch.where(d.reshape(d.shape + (1,) * (blocks.dim() - 2)), blocks, base)
 
 
 def trajectory(
@@ -391,7 +452,10 @@ def trajectory(
     if cfg.mode is CopyMode.EAGER:
         return store.dense[i]
     _check_oom(cfg, store, "trajectory")
-    blocks = cow_gather(store.pool.data, store.tables[i].contiguous())
+    tab = store.tables[i].contiguous()
+    blocks = cow_gather(store.pool.data, tab)
+    if cfg.delta_cow:
+        blocks = _delta_resolve(store.pool, tab, blocks)
     return blocks.reshape((cfg.capacity, *cfg.item_shape))
 
 
@@ -410,8 +474,10 @@ def materialize_batch(
     if cfg.mode is CopyMode.EAGER:
         return store.dense[ids]
     _check_oom(cfg, store, "materialize_batch")
-    tab = store.tables[ids]  # [k, max_blocks]
-    blocks = cow_gather(store.pool.data, tab.reshape(-1))
+    tab = store.tables[ids].reshape(-1)  # [k * max_blocks]
+    blocks = cow_gather(store.pool.data, tab)
+    if cfg.delta_cow:
+        blocks = _delta_resolve(store.pool, tab, blocks)
     return blocks.reshape((ids.shape[0], cfg.capacity, *cfg.item_shape))
 
 

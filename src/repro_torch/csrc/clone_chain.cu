@@ -8,10 +8,8 @@
 //   delta[b]     = #(new == b) - #(old == b),  member[b] = any(new == b)
 // `delta` and `member` arrive zeroed; ids outside [0, nb) drop out.
 //
-// Exactness: the comb position is formed as the plain path forms it —
-// float(j) + u rounded to f32, then an IEEE division by float(n) (the
-// build passes no --use_fast_math, so `/` is div.rn.f32).  The search is
-// the same lower_bound loop torch.searchsorted(side="left") runs, so
+// Exactness: the comb is comb.cuh's, formed and searched as the plain
+// path does (IEEE division, torch.searchsorted's lower_bound loop), so
 // the ancestors equal the plain version's bit for bit.
 //
 // What bounds it on the card: the bytes of the tables (read twice: the
@@ -27,6 +25,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "comb.cuh"
 #include "refcount_hist.cuh"
 
 namespace {
@@ -36,21 +35,9 @@ __global__ void comb_kernel(const float* __restrict__ cum,
                             int32_t* __restrict__ anc) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const float uu = u[0];
-  const float fn = static_cast<float>(n);
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        j < n; j += stride) {
-    const float pos = (static_cast<float>(j) + uu) / fn;
-    int64_t start = 0;
-    int64_t end = n;
-    while (start < end) {
-      const int64_t mid = start + ((end - start) >> 1);
-      if (!(cum[mid] >= pos)) {
-        start = mid + 1;
-      } else {
-        end = mid;
-      }
-    }
-    anc[j] = static_cast<int32_t>(start < n ? start : n - 1);
+    anc[j] = comb_ancestor(cum, uu, n, j);
   }
 }
 

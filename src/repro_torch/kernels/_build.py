@@ -40,8 +40,11 @@ SOURCES = (
     "cow_gather.cu",
     "clone_chain.cu",
     "paged_attention.cu",
+    "resample.cu",
+    "flash_attention.cu",
+    "ssd_scan.cu",
 )
-HEADERS = ("refcount_hist.cuh",)
+HEADERS = ("refcount_hist.cuh", "comb.cuh")
 # No --use_fast_math: clone_chain's comb positions need IEEE division
 # to match the plain path bit for bit.
 NVCC_FLAGS = (

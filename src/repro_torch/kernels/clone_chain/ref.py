@@ -19,16 +19,20 @@ import torch
 from repro_torch.kernels.refcount_update.ref import refcount_delta_ref
 
 
+def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D tensor, summed in the same order on
+    every call.  A 1-D CUDA cumsum runs CUB's decoupled look-back scan,
+    whose float association depends on timing, so a CDF (and an ancestor
+    at a comb boundary) could change from run to run and from copy mode
+    to copy mode.  A row of a 2-D scan runs in a fixed order."""
+    return torch.cumsum(torch.stack([x, x]), 1)[0]
+
+
 def weights_cdf(logw: torch.Tensor) -> torch.Tensor:
     """Normalized log-weights -> weights -> inclusive CDF, with the tail
     guarded against rounding (``cum[-1] == 1``)."""
     logw = logw - torch.logsumexp(logw, 0)
-    w = torch.exp(logw)
-    # A 1-D CUDA cumsum runs CUB's decoupled look-back scan, whose float
-    # association depends on timing, so the CDF (and an ancestor at a
-    # comb boundary) could change from run to run and from copy mode to
-    # copy mode.  A row of a 2-D scan runs in a fixed order.
-    cum = torch.cumsum(torch.stack([w, w]), 1)[0]
+    cum = fixed_order_cumsum(torch.exp(logw))
     return cum / cum[-1]
 
 

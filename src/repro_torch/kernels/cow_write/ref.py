@@ -27,3 +27,25 @@ def cow_write_ref(
     blocks[rows, pos.long()] = values.to(data.dtype)
     data[dst.long()] = blocks
     return data
+
+
+def cow_write_delta_ref(
+    data: torch.Tensor,  # [num_blocks + 1, *block_shape]
+    src: torch.Tensor,  # [n] int32
+    dst: torch.Tensor,  # [n] int32
+    pos: torch.Tensor,  # [n] int32
+    values: torch.Tensor,  # [n, *item_shape]
+    keep: torch.Tensor,  # [n, block_size] bool or uint8: slots copied from src
+) -> torch.Tensor:
+    """Sub-block delta variant: slots whose ``keep`` bit is clear are
+    zeroed rather than copied (the delta-COW zero fill), and the written
+    item lands at ``pos`` whatever its keep bit.  ``keep`` all set is
+    :func:`cow_write_ref`."""
+    n = src.shape[0]
+    blocks = data[src.long()]  # [n, block_size, *item]
+    kexp = keep.bool().reshape(keep.shape + (1,) * (blocks.dim() - 2))
+    blocks = torch.where(kexp, blocks, torch.zeros((), dtype=data.dtype, device=data.device))
+    rows = torch.arange(n, device=data.device)
+    blocks[rows, pos.long()] = values.to(data.dtype)
+    data[dst.long()] = blocks
+    return data

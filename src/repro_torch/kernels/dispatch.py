@@ -1,8 +1,8 @@
 """Kernel registry and the port's device policy.
 
-Mirrors ``repro.kernels.dispatch`` for the ops ported so far.  The JAX
-package picks a path through ``use_kernel``/``interpret`` switches; the
-port has none.  The device of the tensors decides:
+Mirrors ``repro.kernels.dispatch``: every op of its ``KNOWN_OPS`` has a
+CUDA kernel here.  The JAX package picks a path through
+``use_kernel``/``interpret`` switches; the port has none.  The device of the tensors decides:
 
 * CUDA tensors go to the hand-written kernel.  Its wrapper launches it
   or raises — there is no ``try`` that falls back to the plain version.
@@ -33,10 +33,12 @@ __all__ = [
 
 #: kernel-op registry: public op name -> (subpackage, wrapper that
 #: launches the kernel).  Each wrapper has a ``launches`` counter.  The
-#: reference's one ``paged_attention`` entry is two here, one per TPU
-#: kernel it dispatches to, so each variant's launches are counted.
+#: reference's ``cow_write`` and ``paged_attention`` entries are two here
+#: each, one per TPU kernel they dispatch to, so each variant's launches
+#: are counted.
 KNOWN_OPS = {
     "cow_write": ("repro_torch.kernels.cow_write", "cow_write"),
+    "cow_write_delta": ("repro_torch.kernels.cow_write", "cow_write_delta"),
     "refcount_update": ("repro_torch.kernels.refcount_update", "refcount_delta"),
     "cow_gather": ("repro_torch.kernels.cow_gather", "cow_gather"),
     "clone_chain": ("repro_torch.kernels.clone_chain", "clone_chain_kernel"),
@@ -45,6 +47,9 @@ KNOWN_OPS = {
         "repro_torch.kernels.paged_attention",
         "paged_attention_delta_kernel",
     ),
+    "resample": ("repro_torch.kernels.resample", "systematic_comb"),
+    "flash_attention": ("repro_torch.kernels.flash_attention", "flash_attention"),
+    "ssd_scan": ("repro_torch.kernels.ssd_scan", "ssd_scan"),
 }
 
 

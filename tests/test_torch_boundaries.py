@@ -24,9 +24,13 @@ from repro_torch.core.config import ALL_MODES, CopyMode  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.clone_chain import clone_chain_kernel, weights_cdf  # noqa: E402
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
-from repro_torch.kernels.cow_write import cow_write  # noqa: E402
+from repro_torch.kernels.cow_write import cow_write, cow_write_delta  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.refcount_update import refcount_delta  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref  # noqa: E402
+from repro_torch.kernels.resample import resample_systematic_kernel, systematic_comb  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.serving import crosscheck as cc  # noqa: E402
 from repro_torch.serving.crosscheck import LOGIT_TOL, card_against_cpu, smoke_program  # noqa: E402
 from repro_torch.smc.filters import FilterConfig, ParticleFilter, SSMDef  # noqa: E402
@@ -85,7 +89,40 @@ def test_unported_options_raise():
 
 
 # The plain version each ops module routes CPU tensors to.
-REF_NAMES = {"refcount_update": "refcount_delta_ref", "paged_attention_delta": "paged_attention_ref"}
+REF_NAMES = {
+    "refcount_update": "refcount_delta_ref",
+    "paged_attention_delta": "paged_attention_ref",
+    "resample": "resample_systematic_ref",
+}
+
+
+def delta_store_program(device, mode):
+    """A small delta-COW store program: appends, a mid-block clone, the
+    divergent appends that make delta blocks, a clone of those, and the
+    reads that resolve through the parents."""
+    cfg = tstore.StoreConfig(mode=mode, n=64, block_size=4, max_blocks=6, delta_cow=True)
+    s = tstore.create(cfg, device=device)
+    gen = rnd.generator(1, device)
+    for t in range(14):
+        if t % 3 == 2:
+            s, _ = tstore.clone_chain(cfg, s, gen, rnd.normal(gen, (64,)))
+        s = tstore.append(cfg, s, rnd.normal(gen, (64,)))
+    return cfg, s, tstore.materialize_batch(cfg, s, torch.arange(64, device=device))
+
+
+def ssd_inputs(gen, b, s, h, p, n, dtype, device):
+    x = torch.randn((b, s, h, p), generator=gen, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=device))
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=device))
+    bm = torch.randn((b, s, n), generator=gen, device=device).to(dtype)
+    cm = torch.randn((b, s, n), generator=gen, device=device).to(dtype)
+    return x, dt, a, bm, cm
+
+
+def test_delta_store_program_on_the_cpu():
+    for mode in (CopyMode.LAZY, CopyMode.LAZY_SR):
+        cfg, s, _ = delta_store_program("cpu", mode)
+        assert bool((s.pool.parent >= 0).any()) and not bool(s.pool.oom)
 
 
 def test_crosscheck_on_the_cpu():
@@ -135,6 +172,14 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
                 tstore.compact(pf.store_cfg, res.store)
         for delta_cow in (False, True):
             smoke_program(cuda_device, delta_cow)
+    for mode in (CopyMode.LAZY, CopyMode.LAZY_SR):
+        delta_store_program(cuda_device, mode)
+    gen = rnd.generator(2, cuda_device)
+    resample_systematic_kernel(gen, rnd.normal(gen, (4096,)))
+    q = torch.randn((1, 130, 4, 64), generator=gen, device=cuda_device)
+    kv = torch.randn((1, 130, 2, 64), generator=gen, device=cuda_device)
+    flash_attention(q, kv, kv, window=32)
+    ssd_scan(*ssd_inputs(gen, 1, 128, 2, 16, 32, torch.float32, cuda_device))
     torch.cuda.synchronize()
     assert all(count > 0 for count in dispatch.launch_counts().values())
 
@@ -160,6 +205,66 @@ class TestKernelsOnCard:
         want = cow_write(data.clone(), src, dst, pos, values)
         args = [x.to(cuda_device) for x in (data, src, dst, pos, values)]
         assert torch.equal(cow_write(*args).cpu(), want)
+
+    def test_cow_write_delta(self, cuda_device):
+        """Copy rows keeping some slots, copy rows keeping none (source
+        routed to the dump row), in-place rows, masked rows."""
+        rng = np.random.default_rng(5)
+        nb, n, bs = 3000, 900, 8
+        data = torch.as_tensor(rng.standard_normal((nb + 1, bs, 1)).astype(np.float32))
+        data[nb] = 0
+        ids = torch.as_tensor(rng.permutation(nb).astype(np.int32))
+        kind = torch.as_tensor(rng.integers(0, 4, n))  # copy / empty copy / in place / masked
+        shared = ids[n : n + 5][torch.as_tensor(rng.integers(0, 5, n))]
+        src = torch.where(kind == 0, shared, ids[:n])
+        src = torch.where((kind == 1) | (kind == 3), nb, src).int()
+        dst = torch.where(kind == 3, nb, ids[:n]).int()
+        keep = torch.as_tensor(rng.random((n, bs)) < 0.5)
+        keep = torch.where((kind == 2)[:, None], True, keep)
+        keep = torch.where((kind == 1)[:, None], False, keep)
+        pos = torch.as_tensor(rng.integers(0, bs, n).astype(np.int32))
+        values = torch.as_tensor(rng.standard_normal((n, 1)).astype(np.float32))
+        for k in (keep, keep.to(torch.uint8)):
+            want = cow_write_delta(data.clone(), src, dst, pos, values, k)
+            args = [x.to(cuda_device) for x in (data, src, dst, pos, values, k)]
+            assert torch.equal(cow_write_delta(*args).cpu(), want)
+
+    @pytest.mark.parametrize("n", [1000, 4096, 65536])
+    def test_resample(self, cuda_device, n):
+        rng = np.random.default_rng(n)
+        w = np.exp(3 * rng.standard_normal(n)).astype(np.float32)
+        cum = torch.as_tensor(np.cumsum(w, dtype=np.float32))
+        cum = cum / cum[-1]
+        u = torch.as_tensor(np.array([rng.random()], np.float32))
+        want = systematic_comb(cum, u)
+        assert torch.equal(systematic_comb(cum.to(cuda_device), u.to(cuda_device)).cpu(), want)
+
+    @pytest.mark.parametrize("d", HEAD_DIMS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("window", [0, 45])
+    def test_flash_attention(self, cuda_device, d, dtype, window):
+        """Against the plain version on the card: S = 200 (a partial last
+        tile), 6 heads over 2 KV heads; bf16 atol 2e-2, f32 2e-5 (sums in
+        another order)."""
+        gen = rnd.generator(d + window, cuda_device)
+        q = torch.randn((2, 200, 6, d), generator=gen, device=cuda_device).to(dtype)
+        k = torch.randn((2, 200, 2, d), generator=gen, device=cuda_device).to(dtype)
+        v = torch.randn((2, 200, 2, d), generator=gen, device=cuda_device).to(dtype)
+        got = flash_attention(q, k, v, window=window)
+        want = flash_attention(q.cpu(), k.cpu(), v.cpu(), window=window)
+        assert got.dtype == dtype
+        atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        torch.testing.assert_close(got.float().cpu(), want.float(), atol=atol, rtol=atol)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_ssd_scan(self, cuda_device, dtype):
+        """mamba2-130m's head widths (P = 64, N = 128, chunk 64) against the
+        plain version on the card, 2e-4 (both compute in f32)."""
+        args = ssd_inputs(rnd.generator(3, cuda_device), 2, 256, 3, 64, 128, dtype, cuda_device)
+        y, h = ssd_scan(*args)
+        yr, hr = ssd_scan(*[a.cpu() for a in args])
+        torch.testing.assert_close(y.cpu(), yr, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(h.cpu(), hr, rtol=2e-4, atol=2e-4)
 
     def test_refcount_delta(self, cuda_device):
         rng = np.random.default_rng(1)

@@ -1,11 +1,12 @@
 """The port's kernel ops against the JAX reference, on the CPU.
 
-Each of the four COW ops runs its plain PyTorch version here (CPU
-tensors) and must equal, bit for bit, both the reference's jnp oracle
-and its Pallas kernel in interpret mode, on the same numpy inputs —
-NULL entries, masked rows and duplicate ids included.  Paged attention's
-plain version, a float computation, is held to both TPU kernels to a
-stated tolerance.  The CUDA kernels
+Each COW op (``cow_write_delta`` included) and ``resample`` runs its
+plain PyTorch version here (CPU tensors) and must equal, bit for bit,
+both the reference's jnp oracle and its Pallas kernel in interpret mode,
+on the same numpy inputs — NULL entries, masked rows and duplicate ids
+included.  The float kernels' plain versions (paged attention, flash
+attention, the SSD scan) are held to the TPU kernels to stated
+tolerances.  The CUDA kernels
 themselves are compared with these plain versions on the card by
 ``chip_smoke.py`` and by the ``cuda``-marked tests in
 ``test_torch_boundaries.py``.
@@ -21,15 +22,25 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import dispatch as jax_dispatch  # noqa: E402
 from repro.kernels.clone_chain.kernel import clone_chain_pallas  # noqa: E402
 from repro.kernels.clone_chain.ref import clone_chain_ref as jax_clone_chain_ref  # noqa: E402
 from repro.kernels.cow_gather import cow_gather as jax_cow_gather  # noqa: E402
 from repro.kernels.cow_gather import pool_compact as jax_pool_compact  # noqa: E402
 from repro.kernels.cow_write import cow_write as jax_cow_write  # noqa: E402
+from repro.kernels.cow_write.kernel import cow_write_delta_pallas  # noqa: E402
+from repro.kernels.cow_write.ref import cow_write_delta_ref as jax_cow_write_delta_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash_attention  # noqa: E402
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
 from repro.kernels.paged_attention import paged_attention as jax_paged_attention  # noqa: E402
 from repro.kernels.refcount_update import refcount_update as jax_refcount_update  # noqa: E402
 from repro.kernels.refcount_update.kernel import refcount_delta_pallas  # noqa: E402
 from repro.kernels.refcount_update.ref import refcount_delta_ref as jax_delta_ref  # noqa: E402
+from repro.kernels.resample.kernel import resample_systematic_pallas  # noqa: E402
+from repro.kernels.resample.ref import resample_systematic_ref as jax_resample_ref  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan  # noqa: E402
+from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref  # noqa: E402
+from repro_torch import random as rnd  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.clone_chain import (  # noqa: E402
@@ -37,12 +48,18 @@ from repro_torch.kernels.clone_chain import (  # noqa: E402
     comb_positions,
 )
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
-from repro_torch.kernels.cow_write import cow_write  # noqa: E402
+from repro_torch.kernels.cow_write import cow_write, cow_write_delta  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels.refcount_update import (  # noqa: E402
     refcount_delta,
     refcount_update,
 )
+from repro_torch.kernels.resample import resample_systematic_kernel, systematic_comb  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+
+pytest.importorskip("hypothesis", reason="property tests need hypothesis (dev extra)")
+from hypothesis import given, settings, strategies as st  # noqa: E402
 
 
 def t(x):
@@ -95,6 +112,86 @@ class TestCowWrite:
             cow_write(t(data), t(src).long(), t(dst), t(pos), t(values))
         with pytest.raises(ValueError):
             cow_write(t(data), t(src)[:-1], t(dst), t(pos), t(values))
+
+
+def delta_case(seed, nb=24, n=12, item_shape=(1,), block_size=4, keep_dtype=bool):
+    """Delta-COW routing as store._write_impl builds it: write_case's copy,
+    in-place and masked rows, with a keep mask that is all set on in-place
+    rows, random on copy rows, and clear on copy rows that read the dump
+    row instead of their source (nothing to keep)."""
+    data, src, dst, pos, values = write_case(seed, nb, n, item_shape, block_size)
+    rng = np.random.default_rng(seed + 100)
+    copy = (src != dst) & (dst != nb)
+    keep = np.where(copy[:, None], rng.random((n, block_size)) < 0.5, True)
+    empty = copy & (rng.random(n) < 0.3)
+    empty[np.flatnonzero(copy)[:1]] = True  # at least one row reads nothing
+    keep[empty] = False
+    src = np.where(copy & ~keep.any(1), nb, src).astype(np.int32)
+    return data, src, dst, pos, values, keep.astype(keep_dtype)
+
+
+class TestCowWriteDelta:
+    @pytest.mark.parametrize("seed", range(4))
+    @pytest.mark.parametrize("item_shape", [(1,), (), (3,)])
+    def test_matches_reference(self, seed, item_shape):
+        """Bit-exact with the reference's jnp oracle and its Pallas kernel
+        in interpret mode, dump row (re-zeroed) and rows with nothing to
+        keep included."""
+        data, src, dst, pos, values, keep = delta_case(seed, item_shape=item_shape)
+        assert (src == data.shape[0] - 1).sum() > (dst == data.shape[0] - 1).sum()
+        args = [jnp.asarray(x) for x in (data, src, dst, pos, values)]
+        want_ref = np.asarray(jax_cow_write(*args, keep=jnp.asarray(keep), use_kernel=False))
+        want_kernel = np.asarray(
+            jax_cow_write(*args, keep=jnp.asarray(keep), use_kernel=True, interpret=True)
+        )
+        got_data = t(data)
+        out = cow_write_delta(got_data, t(src), t(dst), t(pos), t(values), t(keep))
+        assert out is got_data  # in place
+        eq(out, want_ref)
+        eq(out, want_kernel)
+        nb = data.shape[0] - 1
+        eq(out[:nb], np.asarray(jax_cow_write_delta_ref(*args, jnp.asarray(keep)))[:nb])
+        assert not out[nb].any()
+
+    def test_uint8_keep_and_pallas_entry(self):
+        data, src, dst, pos, values, keep = delta_case(7, keep_dtype=np.uint8)
+        flat = jnp.asarray(data.reshape(data.shape[0], -1))
+        want = np.asarray(cow_write_delta_pallas(
+            flat, *[jnp.asarray(x) for x in (src, dst, pos)],
+            jnp.asarray(values.reshape(values.shape[0], -1)), jnp.asarray(keep.astype(np.int32)),
+            interpret=True,
+        )).reshape(data.shape)
+        out = cow_write_delta(t(data), t(src), t(dst), t(pos), t(values), t(keep))
+        nb = data.shape[0] - 1
+        eq(out[:nb], want[:nb])
+
+    def test_keep_all_is_the_whole_block_write(self):
+        data, src, dst, pos, values = write_case(3)
+        keep = np.ones((src.shape[0], data.shape[1]), bool)
+        whole = cow_write(t(data), t(src), t(dst), t(pos), t(values))
+        delta = cow_write_delta(t(data), t(src), t(dst), t(pos), t(values), t(keep))
+        assert torch.equal(whole, delta)
+
+    @settings(max_examples=25, deadline=None, derandomize=True, database=None)
+    @given(
+        st.integers(0, 2**31 - 1),
+        st.sampled_from([(), (1,), (2,)]),
+        st.integers(1, 6),
+    )
+    def test_random_routing(self, seed, item_shape, block_size):
+        data, src, dst, pos, values, keep = delta_case(
+            seed, item_shape=item_shape, block_size=block_size
+        )
+        args = [jnp.asarray(x) for x in (data, src, dst, pos, values)]
+        want = np.asarray(jax_cow_write(*args, keep=jnp.asarray(keep), use_kernel=False))
+        eq(cow_write_delta(t(data), t(src), t(dst), t(pos), t(values), t(keep)), want)
+
+    def test_rejects_bad_inputs(self):
+        data, src, dst, pos, values, keep = delta_case(0)
+        with pytest.raises(TypeError):
+            cow_write_delta(t(data), t(src), t(dst), t(pos), t(values), t(keep).int())
+        with pytest.raises(ValueError):
+            cow_write_delta(t(data), t(src), t(dst), t(pos), t(values), t(keep)[:, :-1])
 
 
 def table_case(seed, nb=40, e=300):
@@ -227,8 +324,10 @@ class TestDispatch:
     def test_registry_resolves_wrappers(self):
         for name in dispatch.KNOWN_OPS:
             assert isinstance(dispatch.get_op(name).launches, int)
+        # Every op of the reference's registry has its port.
+        assert set(jax_dispatch.KNOWN_OPS) <= set(dispatch.KNOWN_OPS)
         with pytest.raises(ValueError):
-            dispatch.get_op("flash_attention")
+            dispatch.get_op("no_such_op")
 
     def test_route_policy(self):
         cpu = torch.zeros(2)
@@ -251,6 +350,12 @@ class TestDispatch:
         pargs = [t(x) for x in (q, k_pool, v_pool, ptables, lengths)]
         paged_attention(*pargs)
         paged_attention(*pargs, parent=t(parent), dirty=t(dirty))
+        data, src, dst, pos, values, keep = delta_case(1)
+        cow_write_delta(t(data), t(src), t(dst), t(pos), t(values), t(keep))
+        systematic_comb(t(cum), t(np.array([u])))
+        q, k, v = attention_case(0, 2, 32, 4, 2, 16, np.float32)
+        flash_attention(t(q), t(k), t(v))
+        ssd_scan(*[t(x) for x in ssd_case(0, 1, 16, 2, 4, 8)], chunk=8)
         assert dispatch.launch_counts() == {name: 0 for name in dispatch.KNOWN_OPS}
 
 
@@ -330,3 +435,136 @@ class TestPagedAttention:
             paged_attention(args[0], args[1][..., :8], args[2][..., :8], *args[3:])
         with pytest.raises(TypeError):
             paged_attention(*args, parent=t(parent).long(), dirty=t(dirty))
+
+
+class TestResample:
+    """The comb against the reference's oracle and its Pallas kernel, given
+    the same CDF and uniform: bit for bit (power-of-two n: the jitted
+    reference divides by n as a reciprocal multiply)."""
+
+    @pytest.mark.parametrize("seed", range(3))
+    @pytest.mark.parametrize("n", [128, 256, 1024])
+    def test_matches_reference(self, seed, n):
+        cum, u, _, _ = chain_case(seed, n)
+        got = systematic_comb(t(cum), t(np.array([u])))
+        eq(got, jax_resample_ref(jnp.asarray(cum), jnp.asarray([u])))
+        eq(got, resample_systematic_pallas(jnp.asarray(cum), jnp.asarray([u]), interpret=True))
+        assert got.dtype == torch.int32
+
+    def test_weight_path_draws_one_uniform(self):
+        """Softmax, fixed-order CDF, ``cum / cum[-1]``, one uniform of shape
+        (1,) from the generator, then the comb; sorted valid ancestors."""
+        logw = torch.as_tensor((3 * np.random.default_rng(0).standard_normal(256)).astype(np.float32))
+        replay = rnd.Replay([("uniform", np.array([0.25], np.float32))])
+        anc = resample_systematic_kernel(replay, logw)
+        assert replay.remaining == 0
+        cum = torch.cumsum(torch.softmax(logw, 0), 0)
+        eq(anc, systematic_comb(cum / cum[-1], torch.tensor([0.25])))
+        assert anc.min() >= 0 and anc.max() < 256 and bool((anc.diff() >= 0).all())
+
+    def test_degenerate_weight(self):
+        logw = torch.full((128,), -float("inf"))
+        logw[37] = 0.0
+        anc = resample_systematic_kernel(rnd.generator(0, "cpu"), logw)
+        assert bool((anc == 37).all())
+
+
+def attention_case(seed, b, s, h, kvh, d, dtype):
+    rng = np.random.default_rng(seed)
+    q, k, v = (
+        rng.standard_normal((b, s, heads, d)).astype(np.float32) for heads in (h, kvh, kvh)
+    )
+    return q, k, v
+
+
+def tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+
+
+class TestFlashAttention:
+    """The plain version against the reference's Pallas kernel in interpret
+    mode over ``tests/test_kernels.py``'s sweep (window included), to that
+    file's ``tol(dtype)``; inputs rounded to bf16 the same way on both
+    sides."""
+
+    @pytest.mark.parametrize(
+        "s,h,kvh,d,window,bq,bk",
+        [
+            (128, 4, 4, 64, 0, 64, 64),  # MHA
+            (128, 8, 2, 64, 0, 32, 64),  # GQA 4x
+            (256, 4, 1, 32, 0, 128, 128),  # MQA
+            (128, 4, 2, 64, 32, 32, 32),  # sliding window (gemma local)
+            (192, 6, 2, 64, 0, 64, 64),  # starcoder-like head count
+        ],
+    )
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_reference_kernel(self, s, h, kvh, d, window, bq, bk, dtype):
+        q, k, v = attention_case(s + h, 2, s, h, kvh, d, dtype)
+        jargs = [jnp.asarray(x, dtype=getattr(jnp, dtype)) for x in (q, k, v)]
+        targs = [t(x).to(getattr(torch, dtype)) for x in (q, k, v)]
+        want = jax_flash_attention(*jargs, window=window, block_q=bq, block_k=bk, interpret=True)
+        got = flash_attention(*targs, window=window)
+        assert got.dtype == targs[0].dtype and got.shape == targs[0].shape
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol(dtype))
+
+    @pytest.mark.parametrize("window", [0, 17])
+    def test_matches_reference_oracle(self, window):
+        q, k, v = attention_case(1, 2, 80, 6, 3, 16, "float32")
+        want = jax_flash_ref(*[jnp.asarray(x).swapaxes(1, 2) for x in (q, k, v)], window=window)
+        got = flash_attention(t(q), t(k), t(v), window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want.swapaxes(1, 2)), rtol=2e-5, atol=2e-5)
+
+    def test_rejects_bad_inputs(self):
+        q, k, v = attention_case(0, 1, 16, 4, 2, 8, "float32")
+        with pytest.raises(TypeError):
+            flash_attention(t(q), t(k).double(), t(v))
+        with pytest.raises(ValueError):
+            flash_attention(t(q), t(k)[:, :, :1], t(v))
+
+
+def ssd_case(seed, b, s, h, p, n):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)  # softplus
+    a = (-np.exp(0.3 * rng.standard_normal(h))).astype(np.float32)
+    bm = rng.standard_normal((b, s, n)).astype(np.float32)
+    cm = rng.standard_normal((b, s, n)).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+class TestSSDScan:
+    """The plain version (the port's copy of ``ssd_chunked``) against the
+    reference's oracle and its Pallas kernel in interpret mode: 2e-4 on
+    f32 inputs, 5e-2 on bf16 inputs (against the reference on the same
+    values in f32), as ``tests/test_kernels.py`` holds the kernel."""
+
+    @pytest.mark.parametrize(
+        "s,q,h,p,n",
+        [(64, 16, 2, 8, 16), (64, 64, 3, 8, 16), (128, 32, 2, 16, 32), (32, 8, 1, 4, 8)],
+    )
+    def test_matches_reference(self, s, q, h, p, n):
+        args = ssd_case(s + q + h, 2, s, h, p, n)
+        yk, hk = jax_ssd_scan(*[jnp.asarray(x) for x in args], chunk=q, interpret=True)
+        yr, hr = jax_ssd_scan_ref(*[jnp.asarray(x) for x in args], chunk=q)
+        y, hf = ssd_scan(*[t(x) for x in args], chunk=q)
+        assert y.dtype == hf.dtype == torch.float32
+        for got, want in ((y, yk), (y, yr), (hf, hk), (hf, hr)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+    def test_bf16_inputs(self):
+        x, dt, a, bm, cm = ssd_case(5, 1, 32, 2, 8, 8)
+        x, bm, cm = (t(v).to(torch.bfloat16) for v in (x, bm, cm))
+        y, hf = ssd_scan(x, t(dt), t(a), bm, cm, chunk=8)
+        yr, hr = jax_ssd_scan_ref(
+            *[jnp.asarray(v.float().numpy()) for v in (x,)], jnp.asarray(dt), jnp.asarray(a),
+            jnp.asarray(bm.float().numpy()), jnp.asarray(cm.float().numpy()), chunk=8,
+        )
+        np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=5e-2, atol=5e-2)
+        np.testing.assert_allclose(hf.numpy(), np.asarray(hr), rtol=5e-2, atol=5e-2)
+
+    def test_chunk_invariance(self):
+        args = [t(x) for x in ssd_case(9, 1, 64, 2, 8, 16)]
+        y1, h1 = ssd_scan(*args, chunk=16)
+        y2, h2 = ssd_scan(*args, chunk=64)
+        torch.testing.assert_close(y1, y2, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(h1, h2, rtol=2e-4, atol=2e-4)

@@ -281,5 +281,165 @@ def test_strict_oom_and_unported_options():
     assert bool(tstore.oom_flag(cfg, s))
     with pytest.raises(RuntimeError, match="exhausted pool"):
         tstore.materialize_batch(cfg, s, torch.arange(4))
-    with pytest.raises(NotImplementedError):
-        tstore.StoreConfig(mode=CopyMode.LAZY, n=2, block_size=2, max_blocks=2, delta_cow=True)
+    # delta_cow is ported: it builds, writes and reads back.
+    dcfg = tstore.StoreConfig(mode=CopyMode.LAZY, n=2, block_size=2, max_blocks=2, delta_cow=True)
+    ds = tstore.append(dcfg, tstore.create(dcfg, CPU), torch.tensor([1.0, 2.0]))
+    ds = tstore.clone(dcfg, ds, torch.zeros(2, dtype=torch.int32))
+    ds = tstore.append(dcfg, ds, torch.tensor([3.0, 4.0]))
+    assert (ds.pool.parent >= 0).any()
+    assert tstore.materialize_batch(dcfg, ds, torch.arange(2))[:, :2].tolist() == [[1.0, 3.0], [1.0, 4.0]]
+
+
+def delta_program(lib, cfg, s, arr):
+    """tests/test_delta_cow.py's _delta_program (a mid-block clone, the
+    divergence that makes delta pages, a masked write_at, the appends
+    that fill the tail block and degenerate the delta pages), extended
+    with the reads, a second append round after a clone of delta pages,
+    and the fused clone_chain; ``arr`` makes the framework's arrays.
+    Yields after every op."""
+    n = cfg.n
+    rows = arr(np.arange(n, dtype=np.float32))
+    for t in range(4):
+        s = lib.append(cfg, s, rows * 10 + t)
+        yield s
+    s = lib.clone(cfg, s, arr(np.zeros(n, np.int32)))
+    yield s
+    s = lib.append(cfg, s, rows + 100)  # divergence -> delta COW
+    yield s
+    s = lib.write_at(
+        cfg, s, arr(np.full(n, 1, np.int32)), -rows, mask=arr(np.arange(n) % 2 == 0)
+    )
+    yield s
+    # Clone the delta pages themselves, then write into them again.
+    s = lib.clone(cfg, s, arr(np.array([1, 1, 0, 3], np.int32)[:n]))
+    yield s
+    s = lib.append(cfg, s, rows + 150)
+    yield s
+    for pos in (0, 2, 4, 5):
+        yield lib.read_at(cfg, s, arr(np.full(n, pos, np.int32)))
+    yield lib.materialize_batch(cfg, s, arr(np.arange(n, dtype=np.int32)))
+    for t in range(cfg.block_size):  # fill the tail block: degeneration
+        s = lib.append(cfg, s, rows + 200 + t)
+        yield s
+    s = lib.clone(cfg, s, arr((np.arange(n) // 2).astype(np.int32)))
+    yield s
+    yield lib.materialize_batch(cfg, s, arr(np.arange(n, dtype=np.int32)))
+    yield lib.trajectory(cfg, s, 1)
+
+
+@pytest.mark.parametrize("mode", [CopyMode.LAZY, CopyMode.LAZY_SR])
+def test_delta_program_leaf_exact(mode):
+    """Under delta COW every leaf (data, refcount, frozen, free stack,
+    parent, dirty, tables, lengths, peak) equals the reference's after
+    each op, and the pool's invariants hold with parents in play."""
+    base = dict(n=4, block_size=3, max_blocks=6, num_blocks=40, delta_cow=True)
+    jcfg, tcfg = configs(mode, **base)
+    ref = delta_program(jit_store, jcfg, jstore.create(jcfg), jnp.asarray)
+    port = delta_program(tstore, tcfg, tstore.create(tcfg, CPU), lambda a: torch.as_tensor(a.copy()))
+    made_delta = False
+    for step, (js, ts) in enumerate(zip(ref, port, strict=True)):
+        if isinstance(ts, tstore.ParticleStore):
+            same_store(js, ts)
+            assert tpool.check_invariants(ts.pool, ts.tables) == [], step
+            made_delta |= bool((ts.pool.parent >= 0).any())
+        else:
+            np.testing.assert_array_equal(ts.numpy(), np.asarray(js), err_msg=str(step))
+    assert made_delta
+
+
+@pytest.mark.parametrize("mode", [CopyMode.LAZY, CopyMode.LAZY_SR])
+def test_delta_on_off_observationally_equal(mode):
+    """Within the port, delta COW on and off read back the same: lengths,
+    valid-prefix trajectories and point reads bit-equal (the pool leaves
+    legitimately differ, as in the reference)."""
+    base = dict(mode=mode, n=4, block_size=3, max_blocks=6, num_blocks=40)
+    arr = lambda a: torch.as_tensor(a.copy())  # noqa: E731
+    runs = []
+    for delta in (False, True):
+        cfg = tstore.StoreConfig(**base, delta_cow=delta)
+        outs = list(delta_program(tstore, cfg, tstore.create(cfg, CPU), arr))
+        final = [o for o in outs if isinstance(o, tstore.ParticleStore)][-1]
+        valid = torch.arange(cfg.capacity)[None, :] < final.lengths[:, None]
+        mats = tstore.materialize_batch(cfg, final, torch.arange(4))
+        reads = [o for o in outs if not isinstance(o, tstore.ParticleStore)]
+        runs.append((final.lengths, torch.where(valid, mats, 0.0), reads[:4]))
+    (len0, mat0, reads0), (len1, mat1, reads1) = runs
+    assert torch.equal(len0, len1) and torch.equal(mat0, mat1)
+    assert all(torch.equal(a, b) for a, b in zip(reads0, reads1, strict=True))
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("mode", [CopyMode.LAZY, CopyMode.LAZY_SR])
+def test_random_delta_programs_leaf_exact(seed, mode):
+    """Seeded append / clone / clone_chain / write_at programs under
+    delta COW, leaf-exact with the reference after every op."""
+    jcfg, tcfg = configs(mode, n=4, block_size=4, max_blocks=5, num_blocks=60, delta_cow=True)
+    r = np.random.default_rng(seed)
+    js, ts = jstore.create(jcfg), tstore.create(tcfg, CPU)
+    length = 0
+    for step in range(18):
+        op = r.integers(0, 4) if length else 0
+        if op == 0 and length < jcfg.capacity:
+            vj, vt = both(r.standard_normal(4).astype(np.float32))
+            js, ts = jit_store.append(jcfg, js, vj), tstore.append(tcfg, ts, vt)
+            length += 1
+        elif op == 1:
+            aj, at = both(r.integers(0, 4, 4), np.int32)
+            js, ts = jit_store.clone(jcfg, js, aj), tstore.clone(tcfg, ts, at)
+        elif op == 2:
+            key = jax.random.PRNGKey(int(r.integers(0, 1000)))
+            replay = rnd.Replay([("uniform", np.asarray(jax.random.uniform(key)))])
+            lj, lt = both(r.standard_normal(4).astype(np.float32))
+            js, aj = jit_store.clone_chain(jcfg, js, key, lj)
+            ts, at = tstore.clone_chain(tcfg, ts, replay, lt)
+            np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+        elif length:
+            pj, pt = both(r.integers(0, length, 4), np.int32)
+            vj, vt = both(r.standard_normal(4).astype(np.float32))
+            mj, mt = both(r.integers(0, 2, 4).astype(bool))
+            js = jit_store.write_at(jcfg, js, pj, vj, mj)
+            ts = tstore.write_at(tcfg, ts, pt, vt, mask=mt)
+        same_store(js, ts)
+        assert tpool.check_invariants(ts.pool, ts.tables) == [], step
+    ids_j, ids_t = both(np.arange(4), np.int32)
+    np.testing.assert_array_equal(
+        tstore.materialize_batch(tcfg, ts, ids_t).numpy(),
+        np.asarray(jit_store.materialize_batch(jcfg, js, ids_j)),
+    )
+
+
+@pytest.mark.parametrize("mode", [CopyMode.LAZY, CopyMode.LAZY_SR])
+def test_delta_grow_and_compact_leaf_exact(mode):
+    """grow and compact with delta blocks live (their parents remapped
+    through compact's table), leaf-exact with the reference, and the
+    trajectories unchanged by either."""
+    base = dict(n=4, block_size=3, max_blocks=6, num_blocks=40, delta_cow=True, item_shape=(2,))
+    jcfg, tcfg = configs(mode, **base)
+    js, ts = jstore.create(jcfg), tstore.create(tcfg, CPU)
+    r = np.random.default_rng(11)
+    for t in range(7):
+        if t in (2, 4, 5):
+            aj, at = both(r.integers(0, 4, 4), np.int32)
+            js, ts = jit_store.clone(jcfg, js, aj), tstore.clone(tcfg, ts, at)
+        vj, vt = both(r.standard_normal((4, 2)).astype(np.float32))
+        js, ts = jit_store.append(jcfg, js, vj), tstore.append(tcfg, ts, vt)
+        same_store(js, ts)
+    assert bool((ts.pool.parent >= 0).any())
+    ids_j, ids_t = both(np.arange(4), np.int32)
+    before = tstore.materialize_batch(tcfg, ts, ids_t)
+    js, ts = jit_store.grow(jcfg, js, 55), tstore.grow(tcfg, ts, 55)
+    same_store(js, ts)
+    js, ts = jit_store.compact(jcfg, js), tstore.compact(tcfg, ts)
+    same_store(js, ts)
+    assert tpool.check_invariants(ts.pool, ts.tables) == []
+    assert torch.equal(tstore.materialize_batch(tcfg, ts, ids_t), before)
+    shrink = int(tstore.used_blocks(tcfg, ts)) + 1
+    js, ts = jit_store.compact(jcfg, js, shrink), tstore.compact(tcfg, ts, shrink)
+    same_store(js, ts)
+    np.testing.assert_array_equal(
+        tstore.materialize_batch(tcfg, ts, ids_t).numpy(),
+        np.asarray(jit_store.materialize_batch(jcfg, js, ids_j)),
+    )
+    np.testing.assert_array_equal(
+        tstore.trajectory(tcfg, ts, 2).numpy(), np.asarray(jstore.trajectory(jcfg, js, 2))
+    )
