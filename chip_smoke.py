@@ -27,6 +27,9 @@ Phases (any failed check raises, and the script exits non-zero):
    function where there is one, and the least time the card could take
    (bytes moved over the memory rate).  Times are device time per call
    between CUDA events, the calls queued behind a spin kernel.
+   ``refcount_update`` gets the tables' row length and prints the premise
+   of its design: the mean run of one block down the particle axis and
+   the number of distinct blocks.
 4. A small filter run on the card against the same run on the CPU path,
    fed the same draws: equal tables, log-evidence to rtol 1e-5.
 5. One more LAZY_SR run under ``torch.profiler`` (CUDA activity only),
@@ -78,10 +81,13 @@ Phases (any failed check raises, and the script exits non-zero):
     ``resample`` (N = 65,536, phase 2's final LAZY weights; exact),
     ``flash_attention`` (starcoder2-3b: 24 heads over 2 KV heads, d 128,
     bf16, B = 4 x S = 512 and B = 1 x S = 4,096; gemma3-12b: 16 heads
-    over 8, d 256, window 1,024, S = 4,096; bf16 atol 2e-2) and
+    over 8, d 256, window 1,024, S = 4,096; bf16 atol 2e-2, and each
+    element within 1.25 times its rounding bound of the plain version in
+    f32, a bound that two planted faults must exceed) and
     ``ssd_scan`` (mamba2-130m: 24 heads, P 64, N 128, chunk 64, f32, B = 4
     x S = 2,048; rtol/atol 2e-4), each against its plain version on the
-    card, with its times and bound.
+    card, with its times and bound; flash's library time is SDPA with
+    ``enable_gqa`` (causal, or a boolean causal-and-window mask).
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``
 and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
@@ -131,6 +137,10 @@ FLASH_CASES = (
     ("starcoder2-3b B=1 S=4096", 1, 4096, 24, 2, 128, 0),
     ("gemma3-12b local B=1 S=4096", 1, 4096, 16, 8, 256, 1024),
 )
+# How far past its first-order rounding bound (flash_rounding_bound) a
+# bf16 flash output may lie: second-order terms and f32 sums in another
+# order add well under 1%.
+FLASH_BOUND_LIMIT = 1.25
 # The SSD scan at mamba2-130m's widths (d_inner 1536 = 24 heads of 64,
 # state 128, chunk 64), f32: (B, S, H, P, N, chunk).
 SSD_SHAPE = (4, 2048, 24, 64, 128, 64)
@@ -668,6 +678,51 @@ def delta_store_phase(dev, rate, ys):
     }
 
 
+def mean_run(tables: torch.Tensor) -> float:
+    """Mean length of the runs of one block id down the particle axis of
+    ``[N, mb]`` tables."""
+    heads = tables.shape[1] + int((tables[1:] != tables[:-1]).sum())
+    return tables.numel() / heads
+
+
+def flash_rounding_bound(qt, kt, vt, window):
+    """The plain version in f32 on bf16 attention inputs ([B, H, S, d]
+    views), and how far the tensor-core kernel's output may lie from it
+    per element: P and the output are each rounded to bf16 (a relative
+    2^-8 at most), so by 2^-8 (|out| + sum_j p_j |v_j|), to first order."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    q32, k32, v32 = qt.float(), kt.float(), vt.float()
+    want = flash_attention_ref(q32, k32, v32, window=window)
+    return want, 2.0**-8 * (want.abs() + flash_attention_ref(q32, k32, v32.abs(), window=window))
+
+
+def planted_faults(qt, kt, vt, window) -> dict:
+    """The bf16 outputs of two faults a tiled kernel can make, from f32
+    attention under a changed mask: the 64-key tile before each row's
+    diagonal tile dropped, and the causal edge (or, with a window, the
+    window's edge) one key off."""
+    b, h, s, d = qt.shape
+    kvh = kt.shape[1]
+    i = torch.arange(s, device=qt.device)
+    causal = i[:, None] >= i[None, :]
+    seen = causal & (i[:, None] - i[None, :] < window) if window else causal
+    masks = {
+        "tile_dropped": seen & (i[None, :] // 64 != i[:, None] // 64 - 1),
+        "edge_off_by_one": (causal & (i[:, None] - i[None, :] < window + 1)) if window
+        else i[None, :] <= i[:, None] + 1,
+    }
+    qg = qt.float().reshape(b, kvh, h // kvh, s, d)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg, kt.float()) / math.sqrt(d)
+    out = {}
+    for name, mask in masks.items():
+        p = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+        o = torch.einsum("bkgqs,bksd->bkgqd", p, vt.float()).reshape(b, h, s, d)
+        out[name] = o.to(qt.dtype).transpose(1, 2)
+        del p, o
+    return out
+
+
 def attention_pairs(s: int, window: int) -> int:
     """(query, key) pairs a causal (windowed) attention over s positions
     computes."""
@@ -739,7 +794,10 @@ def registry_phase(dev, rate, logw):
           f"{row['ms']:.4f} ms on the device (plain {row['plain_ms']:.4f}, searchsorted "
           f"{row['library_ms']:.4f})", flush=True)
 
-    # flash_attention: each shape against the plain version (bf16 atol 2e-2).
+    # flash_attention: each shape against the plain version: atol 2e-2,
+    # and every element within FLASH_BOUND_LIMIT times its rounding bound
+    # of the plain version in f32 (flash_rounding_bound), a check that
+    # each planted fault must fail.
     shapes = []
     for name, (q, k, v), w in flash_in:
         b, s, h, d = q.shape
@@ -749,23 +807,41 @@ def registry_phase(dev, rate, logw):
         err = (got.float() - want.float()).abs().max().item()
         require(bool(torch.isfinite(got).all()) and got.shape == q.shape, f"flash {name}: finite output")
         require(err <= 2e-2, f"flash_attention {name}: within atol 2e-2 of its plain version ({err})")
+        want32, bound = flash_rounding_bound(qt, kt, vt, w)
+
+        def ratio_of(out):
+            return ((out.transpose(1, 2).float() - want32).abs() / bound).max().item()
+
+        ratio = ratio_of(got)
+        require(ratio <= FLASH_BOUND_LIMIT, f"flash_attention {name}: within its rounding bound ({ratio})")
+        faults = {fault: ratio_of(out) for fault, out in planted_faults(qt, kt, vt, w).items()}
+        require(min(faults.values()) > FLASH_BOUND_LIMIT,
+                f"flash_attention {name}: the check rejects each planted fault {faults}")
+        del want32, bound
         moved = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         flops = 4 * d * attention_pairs(s, w) * b * h
         bytes_ms, ops_ms = moved / rate * 1e3, flops / BF16_RATE * 1e3
-        library_ms = None
+        sdpa = torch.nn.functional.scaled_dot_product_attention
         if w == 0:
-            sdpa = torch.nn.functional.scaled_dot_product_attention
             library_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        else:  # the causal-and-window mask, built outside the timed region
+            i = torch.arange(s, device=dev)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+            library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            del mask
         case = {
-            "shape": name, "max_abs_err": err, "ms": device_ms(lambda: flash(q, k, v, window=w)),
+            "shape": name, "max_abs_err": err, "rounding_ratio": ratio, "fault_ratios": faults,
+            "ms": device_ms(lambda: flash(q, k, v, window=w)),
             "plain_ms": device_ms(lambda: flash_attention_ref(qt, kt, vt, window=w), reps=5, warmup=1),
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms,
         }
+        case["tflops"] = flops / case["ms"] / 1e9
         shapes.append(case)
-        print(f"kernel flash_attention {name}: max |kernel - plain| {err!r}; {case['ms']:.4f} ms "
-              f"({flops / case['ms'] / 1e9:.2f} TFLOP/s), plain {case['plain_ms']:.4f} ms, SDPA "
-              f"{library_ms if library_ms is None else round(library_ms, 4)} ms, bound "
+        print(f"kernel flash_attention {name}: max |kernel - plain| {err!r}, rounding ratio {ratio!r} "
+              f"(planted faults {json.dumps(faults)}); {case['ms']:.4f} ms "
+              f"({case['tflops']:.2f} TFLOP/s), plain {case['plain_ms']:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms, bound "
               f"{case['bound_ms']:.4f} ms ({case['bound_by']}; {flops} flops, {moved} bytes)", flush=True)
         del got, want
     head = shapes[1]  # starcoder2-3b at S = 4,096: the largest, with a library call
@@ -839,7 +915,7 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.relative_to(ROOT)}", flush=True)
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or line.startswith("=="):
+        if any(key in line for key in ("registers", "spill", "Function properties", "==")):
             print("  ptxas", line.strip(), flush=True)
 
     # -- 2. the main path ---------------------------------------------------
@@ -998,19 +1074,23 @@ def main() -> int:
     anc = torch.searchsorted(cum, (torch.arange(n, device=dev) + torch.rand(n, generator=gen, device=dev)) / n)
     old = tables.reshape(-1).contiguous()
     new = tables[anc.clamp(max=n - 1)].reshape(-1).contiguous()
-    got = refcount_delta(new, old, nb)
+    got = refcount_delta(new, old, nb, row=mb)
     want = refcount_delta_ref(new, old, nb)
+    # The kernel's premise: a column repeats a block down the particle axis.
     print(f"refcount_update: share of entries whose new and old block agree "
-          f"{(new == old).float().mean().item()!r}", flush=True)
+          f"{(new == old).float().mean().item()!r}; mean run down the particle axis "
+          f"{mean_run(new.view(n, mb))!r} (new), {mean_run(tables)!r} (old); distinct blocks "
+          f"{int(torch.unique(new).numel())} (new), {int(torch.unique(old).numel())} (old)",
+          flush=True)
     null_old = null_tables.reshape(-1).contiguous()
     null_new = null_tables[anc.clamp(max=n - 1)].reshape(-1).contiguous()
-    exact(refcount_delta(null_new, null_old, nb), refcount_delta_ref(null_new, null_old, nb),
+    exact(refcount_delta(null_new, null_old, nb, row=mb), refcount_delta_ref(null_new, null_old, nb),
           "refcount_update with NULL entries")
     new1, old1 = (new + 1).long(), (old + 1).long()
     report(
         "refcount_update", "src/repro/kernels/refcount_update/kernel.py:50",
         "src/repro_torch/csrc/refcount_update.cu", got, want,
-        lambda: refcount_delta(new, old, nb), lambda: refcount_delta_ref(new, old, nb),
+        lambda: refcount_delta(new, old, nb, row=mb), lambda: refcount_delta_ref(new, old, nb),
         bytes_moved=2 * old.numel() * 4 + nb * 5,
         library_fn=lambda: torch.bincount(new1, minlength=nb + 1) - torch.bincount(old1, minlength=nb + 1),
     )

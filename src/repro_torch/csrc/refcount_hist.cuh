@@ -1,5 +1,5 @@
-// One table entry's share of the clone bookkeeping, shared by
-// refcount_update.cu and clone_chain.cu.
+// One table entry's share of the clone bookkeeping, for clone_chain.cu
+// (refcount_update.cu follows runs of equal ids instead).
 //
 // The entry held block `b` before the clone and holds block `a` after it:
 //   delta[a] += 1, delta[b] -= 1, member[a] = 1

@@ -1,53 +1,149 @@
 // Clone bookkeeping: signed refcount histogram + membership.
 //
 // Replaces refcount_delta_pallas
-// (src/repro/kernels/refcount_update/kernel.py:50).  Over flattened
-// tables new/old of e entries:
+// (src/repro/kernels/refcount_update/kernel.py:50).  Over tables new/old
+// of `rows` x `cols` entries (row-major; a flat table is one row):
 //   delta[b]  = #(new == b) - #(old == b)   (int32)
 //   member[b] = any(new == b)               (bool, one byte)
 // Entries outside [0, nb) — NULL = -1 — drop out.  `delta` and `member`
 // arrive zeroed.
 //
-// What bounds it on the card: the int32 atomics on delta, and the bytes
-// of the two tables.  The TPU kernel one-hot compares every entry
-// against every block id (O(e * nb): 16.8M x 1.95M on the filter's
-// path); here each entry costs at most two atomicAdds
-// (refcount_hist.cuh), and none where its new and old id agree.  How
-// many entries that skip saves depends on the genealogy: chip_smoke.py
-// prints the share of equal entries at the filter's shapes.
+// What bounds it on the card: the bytes of the two tables (134 MB at the
+// filter's 65,536 x 256), if the updates stay off the critical path.
+// The TPU kernel one-hot compares every entry against every block id
+// (O(e * nb)).  A per-entry update (refcount_hist.cuh, which clone_chain
+// keeps) reads member[new] for every entry, stores it where it is still
+// 0, and adds two atomics per entry whose ids differ.  The filter's
+// tables make those collide: after systematic or stratified resampling
+// the ancestors are sorted, so a column holds the same block down the
+// particle axis in runs (~120 entries on average at N = 65,536, with up
+// to thousands of entries on one block), while one row's entries are all
+// different blocks.  On an H100 the guarded member stores took 1.02 of
+// the per-entry kernel's 1.11 ms at that shape, the atomics 0.01 ms, the
+// loads 0.07 ms (scripts/torch_refcount_split.py).
+//
+// So the update follows the runs.  Each warp owns a segment of SEG rows
+// and 32 * VEC columns; lane l owns VEC neighbouring columns and walks
+// them down the segment.  A warp's row load is one coalesced 32 * VEC
+// word read (16-byte loads when the rows allow), UNROLL rows at a time
+// for memory-level parallelism.  Per column the lane keeps three runs of
+// equal keys: the new id (membership), the new id where it differs from
+// the old (+len) and the old id where it differs from the new (-len).  A
+// run that ends issues one guarded member store or one atomicAdd of its
+// length; an entry whose new and old ids agree still costs no atomic.
+// Integer atomics commute, so the result is bit-exact whatever the order.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "refcount_hist.cuh"
-
 namespace {
 
-__global__ void refcount_delta_kernel(const int32_t* __restrict__ new_ids,
-                                      const int32_t* __restrict__ old_ids,
-                                      int64_t e, int32_t nb, int32_t* delta,
-                                      uint8_t* member) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       t < e; t += stride) {
-    refcount_hist_entry(new_ids[t], old_ids[t], nb, delta, member);
+constexpr int THREADS = 256;
+constexpr int SEG = 128;   // rows a warp walks
+constexpr int UNROLL = 8;  // rows loaded before they are walked
+
+struct Run {
+  int32_t id = -1;  // -1: no run (or a run of entries that count nothing)
+  int32_t len = 0;
+};
+
+__device__ __forceinline__ void extend(Run& run, int32_t key, int32_t sign, int32_t* delta) {
+  if (key == run.id) {
+    ++run.len;
+    return;
   }
+  if (run.id >= 0) atomicAdd(delta + run.id, sign * run.len);
+  run.id = key;
+  run.len = 1;
+}
+
+template <int VEC>
+__device__ __forceinline__ void load(const int32_t* __restrict__ p, int32_t (&x)[VEC]) {
+  if constexpr (VEC == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS) refcount_runs_kernel(
+    const int32_t* __restrict__ new_ids, const int32_t* __restrict__ old_ids, int64_t rows,
+    int64_t cols, int32_t nb, int32_t* delta, uint8_t* member) {
+  const int64_t n_cg = (cols + 32 * VEC - 1) / (32 * VEC);
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x) / 32;
+  const int64_t c0 = warp % n_cg * 32 * VEC + threadIdx.x % 32 * VEC;
+  const int64_t r0 = warp / n_cg * SEG;
+  if (r0 >= rows || c0 >= cols) return;
+  const int64_t r1 = r0 + SEG < rows ? r0 + SEG : rows;
+
+  int32_t seen[VEC];  // the last new id marked in member, per column
+  Run plus[VEC], minus[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) seen[j] = -1;
+
+  for (int64_t r = r0; r < r1; r += UNROLL) {
+    int32_t a[UNROLL][VEC], b[UNROLL][VEC];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (r + u < r1) {
+        load<VEC>(new_ids + (r + u) * cols + c0, a[u]);
+        load<VEC>(old_ids + (r + u) * cols + c0, b[u]);
+      }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (r + u >= r1) break;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int32_t x = a[u][j], y = b[u][j];
+        const bool x_ok = x >= 0 && x < nb, y_ok = y >= 0 && y < nb;
+        if (x_ok && x != seen[j]) {
+          if (member[x] == 0) member[x] = 1;
+          seen[j] = x;
+        }
+        extend(plus[j], x_ok && x != y ? x : -1, 1, delta);
+        extend(minus[j], y_ok && x != y ? y : -1, -1, delta);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    extend(plus[j], -1, 1, delta);
+    extend(minus[j], -1, -1, delta);
+  }
+}
+
+template <int VEC>
+void launch(const int32_t* new_ids, const int32_t* old_ids, int64_t rows, int64_t cols, int32_t nb,
+            int32_t* delta, uint8_t* member, cudaStream_t s) {
+  const int64_t warps = (rows + SEG - 1) / SEG * ((cols + 32 * VEC - 1) / (32 * VEC));
+  const int64_t blocks = (warps * 32 + THREADS - 1) / THREADS;
+  refcount_runs_kernel<VEC><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
+      new_ids, old_ids, rows, cols, nb, delta, member);
 }
 
 }  // namespace
 
-extern "C" int refcount_delta(const void* new_ids, const void* old_ids,
-                              int64_t e, int64_t nb, void* delta, void* member,
+// new_ids / old_ids: `rows` x `cols` int32, row-major.
+extern "C" int refcount_delta(const void* new_ids, const void* old_ids, int64_t rows,
+                              int64_t cols, int64_t nb, void* delta, void* member,
                               void* stream) {
-  if (e > 0) {
-    const int threads = 256;
-    int64_t blocks = (e + threads - 1) / threads;
-    if (blocks > (1LL << 20)) blocks = 1LL << 20;
-    refcount_delta_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(new_ids), static_cast<const int32_t*>(old_ids),
-        e, static_cast<int32_t>(nb), static_cast<int32_t*>(delta),
-        static_cast<uint8_t*>(member));
+  if (rows > 0 && cols > 0) {
+    const auto* a = static_cast<const int32_t*>(new_ids);
+    const auto* b = static_cast<const int32_t*>(old_ids);
+    const auto s = static_cast<cudaStream_t>(stream);
+    auto* d = static_cast<int32_t*>(delta);
+    auto* m = static_cast<uint8_t*>(member);
+    const bool vec = cols % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(b) % 16 == 0;
+    if (vec)
+      launch<4>(a, b, rows, cols, static_cast<int32_t>(nb), d, m, s);
+    else
+      launch<1>(a, b, rows, cols, static_cast<int32_t>(nb), d, m, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,10 @@ as the reference's ``flash_attention/ops.py``.
 CUDA tensors launch ``csrc/flash_attention.cu``, which works in the
 ``[B, H, S, d]`` layout of the TPU kernel: it is handed the transposed
 views and their strides, so no layout copy is made, and it writes the
-``[B, S, H, d]`` output through the same kind of view.  CPU tensors run
-:func:`flash_attention_ref` on the same views.
+``[B, S, H, d]`` output through the same kind of view.  bf16 inputs go to
+the tensor-core kernel, whose TMA loads need 16-byte aligned bases and
+strides (a view without them raises); f32 inputs to the CUDA-core
+kernel.  CPU tensors run :func:`flash_attention_ref` on the same views.
 """
 
 from __future__ import annotations
@@ -50,6 +52,12 @@ def flash_attention(
         return flash_attention_ref(qt, kt, vt, scale=scale, window=window).transpose(1, 2)
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIMS}")
+    if sk == 0:  # no key: every row writes 0, and TMA takes no empty extent
+        return torch.zeros_like(q)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
+                raise ValueError(f"{name}: TMA needs 16-byte aligned base and strides {t.stride()}")
     out = torch.empty_like(q)
     ot = out.transpose(1, 2)
     strides = (ctypes.c_int64 * 12)(*(s for t in (qt, kt, vt, ot) for s in t.stride()[:3]))

@@ -184,6 +184,42 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
     assert all(count > 0 for count in dispatch.launch_counts().values())
 
 
+def genealogy_tables(rng, n, mb, nb):
+    """Block tables as resampling leaves them: each column a sorted (so
+    run-structured) sequence of block ids down the particle axis, one hot
+    block over the first half of column 0, NULL tails past each row's
+    length; the new tables are the rows of sorted ancestors."""
+    old = np.sort(rng.integers(0, nb, (n, mb)), axis=0).astype(np.int32)
+    old[: n // 2, :1] = 7
+    lengths = rng.integers(0, mb + 1, n)
+    old[np.arange(mb)[None, :] >= lengths[:, None]] = -1
+    anc = np.sort(rng.integers(0, max(n, 1), n))
+    return old[anc], old
+
+
+def check_flash(gen, shape, dtype, window):
+    """flash_attention on the card against its plain version.  f32: atol
+    and rtol 2e-5.  bf16: atol and rtol 2e-2, and each element within
+    1.25 times the rounding the tensor-core kernel does of the plain
+    version in f32: P and the output are rounded to bf16, each a relative
+    2^-8 at most, so |out - plain| <= 2^-8 (|plain| + sum_j p_j |v_j|)."""
+    b, s, h, kvh, d = shape
+    device = gen.device
+    q = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, s, kvh, d), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, s, kvh, d), generator=gen, device=device).to(dtype)
+    got = flash_attention(q, k, v, window=window)
+    want = flash_attention(q.cpu(), k.cpu(), v.cpu(), window=window)
+    assert got.dtype == dtype
+    atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=atol, rtol=atol)
+    if dtype == torch.bfloat16:
+        q, k, v = q.float().cpu(), k.float().cpu(), v.float().cpu()
+        want = flash_attention(q, k, v, window=window)
+        bound = 2.0**-8 * (want.abs() + flash_attention(q, k, v.abs(), window=window))
+        assert ((got.float().cpu() - want).abs() <= 1.25 * bound).all()
+
+
 @pytest.mark.cuda
 class TestKernelsOnCard:
     """Each CUDA kernel against its plain version on the same inputs:
@@ -244,17 +280,36 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("window", [0, 45])
     def test_flash_attention(self, cuda_device, d, dtype, window):
         """Against the plain version on the card: S = 200 (a partial last
-        tile), 6 heads over 2 KV heads; bf16 atol 2e-2, f32 2e-5 (sums in
-        another order)."""
-        gen = rnd.generator(d + window, cuda_device)
-        q = torch.randn((2, 200, 6, d), generator=gen, device=cuda_device).to(dtype)
-        k = torch.randn((2, 200, 2, d), generator=gen, device=cuda_device).to(dtype)
-        v = torch.randn((2, 200, 2, d), generator=gen, device=cuda_device).to(dtype)
-        got = flash_attention(q, k, v, window=window)
-        want = flash_attention(q.cpu(), k.cpu(), v.cpu(), window=window)
-        assert got.dtype == dtype
-        atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-        torch.testing.assert_close(got.float().cpu(), want.float(), atol=atol, rtol=atol)
+        tile), 6 heads over 2 KV heads; bf16 atol 2e-2 and each element
+        within its rounding bound, f32 2e-5 (sums in another order)."""
+        check_flash(rnd.generator(d + window, cuda_device), (2, 200, 6, 2, d), dtype, window)
+
+    @pytest.mark.parametrize("d", HEAD_DIMS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("window", [0, 45, 1000])
+    @pytest.mark.parametrize("b,s,h,kvh", [(1, 1, 4, 4), (3, 63, 3, 1), (1, 300, 8, 1), (3, 130, 16, 2)])
+    def test_flash_attention_tiling(self, cuda_device, d, dtype, window, b, s, h, kvh):
+        """The tensor-core kernel's tiling: S of 1, 63, 130 and 300 (none
+        a multiple of its 128 query rows), a window inside one 64-key tile
+        and one longer than S, query heads per KV head 1, 3 and 8, B up to
+        3; tolerances as above."""
+        check_flash(rnd.generator(d + window + s, cuda_device), (b, s, h, kvh, d), dtype, window)
+
+    def test_flash_attention_without_keys(self, cuda_device):
+        """No key (Sk = 0): every row writes 0, as the plain version does."""
+        q = torch.randn((1, 5, 2, 64), device=cuda_device).to(torch.bfloat16)
+        kv = torch.zeros((1, 0, 2, 64), dtype=torch.bfloat16, device=cuda_device)
+        got = flash_attention(q, kv, kv)
+        want = flash_attention(q.cpu(), kv.cpu(), kv.cpu())
+        assert torch.equal(got.cpu(), want) and not want.any()
+
+    def test_flash_attention_refuses_unaligned_views(self, cuda_device):
+        """TMA takes 16-byte aligned bases only: a bf16 view two bytes into
+        its storage raises rather than falling back."""
+        flat = torch.zeros(2 * 64 * 2 * 64 + 1, dtype=torch.bfloat16, device=cuda_device)
+        q = flat[1:].view(2, 64, 2, 64)
+        with pytest.raises(ValueError, match="TMA"):
+            flash_attention(q, q, q)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_ssd_scan(self, cuda_device, dtype):
@@ -274,6 +329,31 @@ class TestKernelsOnCard:
         got = refcount_delta(new.to(cuda_device), old.to(cuda_device), 500)
         for a, b in zip(got, want, strict=True):
             assert torch.equal(a.cpu(), b)
+
+    @pytest.mark.parametrize(
+        "case", ["1000x256", "777x37", "5000x1", "130x129", "0x16", "300x64 unaligned"]
+    )
+    def test_refcount_delta_genealogy(self, cuda_device, case):
+        """Genealogy-shaped tables: each column a run-structured block
+        sequence down the particle axis, resampled by sorted ancestors,
+        with a hot block over half a column and NULL tails; N and the row
+        length off the kernel's 128-row segments and 128-column groups, a
+        row of 1, no entries, and a base that is not 16-byte aligned.
+        Exact, with the row length given and without."""
+        rng = np.random.default_rng(1)
+        nb = 500
+        n, row = (int(x) for x in case.split()[0].split("x"))
+        new, old = genealogy_tables(rng, n, row, nb)
+        new, old = torch.as_tensor(new).reshape(-1), torch.as_tensor(old).reshape(-1)
+        want = refcount_delta(new, old, nb)
+        for r in (row, None):
+            a, b = new.to(cuda_device), old.to(cuda_device)
+            if case.endswith("unaligned"):  # a view 4 bytes into its storage
+                a = torch.cat([a[:1], a])[1:]
+                b = torch.cat([b[:1], b])[1:]
+            got = refcount_delta(a, b, nb, row=r)
+            for x, y in zip(got, want, strict=True):
+                assert torch.equal(x.cpu(), y)
 
     def test_cow_gather_and_compact(self, cuda_device):
         rng = np.random.default_rng(2)

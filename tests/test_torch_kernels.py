@@ -235,6 +235,50 @@ class TestRefcountUpdate:
             eq(a, b)
 
 
+    @pytest.mark.parametrize("shape", [(20, 15), (300,), (1, 300), (300, 1), (60, 5)])
+    @pytest.mark.parametrize("with_row", [False, True])
+    def test_delta_row_keyword_matches_reference(self, shape, with_row):
+        """The row length changes no result: 2-D and 1-D tables, with and
+        without the keyword, equal the oracle and the Pallas kernel."""
+        nb = 40
+        new, old = table_case(11, nb, e=int(np.prod(shape)))
+        row = shape[-1] if with_row else None
+        want = [jax_delta_ref(jnp.asarray(new), jnp.asarray(old), nb),
+                refcount_delta_pallas(jnp.asarray(new), jnp.asarray(old), num_blocks=nb, interpret=True)]
+        got = refcount_delta(t(new), t(old), nb, row=row)
+        for want_d, want_m in want:
+            eq(got[0], want_d)
+            eq(got[1], want_m)
+
+    @pytest.mark.parametrize("shape", [(64, 9), (576,)])
+    @pytest.mark.parametrize("do_freeze", [False, True])
+    def test_update_on_genealogy_tables(self, shape, do_freeze):
+        """Tables as resampling leaves them (runs of one block down the
+        particle axis, NULL tails), 2-D and flat: ``refcount_update``
+        equals the reference's, through its Pallas kernel."""
+        nb = 30
+        rng = np.random.default_rng(5)
+        old = np.sort(rng.integers(0, nb, (64, 9)), axis=0).astype(np.int32)
+        old[np.arange(9)[None, :] >= rng.integers(0, 10, 64)[:, None]] = -1
+        new = old[np.sort(rng.integers(0, 64, 64))]
+        new, old = new.reshape(shape), old.reshape(shape)
+        refcount = np.bincount(old[old >= 0], minlength=nb).astype(np.int32)
+        frozen = rng.integers(0, 2, nb).astype(bool)
+        want = jax_refcount_update(
+            jnp.asarray(refcount), jnp.asarray(frozen), jnp.asarray(new),
+            jnp.asarray(old), do_freeze=do_freeze, use_kernel=True, interpret=True,
+        )
+        got = refcount_update(t(refcount), t(frozen), t(new), t(old), do_freeze=do_freeze)
+        for a, b in zip(got, want, strict=True):
+            eq(a, b)
+
+    @pytest.mark.parametrize("row", [0, 7, -3])
+    def test_delta_rejects_a_row_that_does_not_divide(self, row):
+        new, old = table_case(0, 40, e=300)
+        with pytest.raises(ValueError, match="row length"):
+            refcount_delta(t(new), t(old), 40, row=row)
+
+
 class TestCowGather:
     @pytest.mark.parametrize("seed", range(3))
     @pytest.mark.parametrize("block_shape", [(4, 1), (3,), (2, 3)])
