@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, one
-   process per source, in parallel).
+   process per source, in parallel), and print ptxas' registers and
+   spills for every kernel instantiation.
 2. The particle filter's path, with every kernel's launch counter set to
    0 just before and read just after: the LGSSM particle filter of
    ``examples/quickstart.py`` (A=0.9, Q=0.5, R=0.3, record ``(1,)``,
@@ -49,11 +50,20 @@ Phases (any failed check raises, and the script exits non-zero):
    ``compact_cache`` equal to the same step on an uncompacted copy; the
    two runs bit-identical in every logit and token; ``paged_attention``,
    ``paged_attention_delta`` and ``cow_gather`` launched.  Then eight
-   decode steps under ``torch.profiler``.
+   decode steps under ``torch.profiler`` (``serve_profile``).  Each call
+   of the paged kernel launches the split kernel, whose name holds
+   ``paged_attention_kernel``, and then its merge,
+   ``paged_attention_combine``, which does not: the trace is complete
+   when it holds exactly one ``paged_attention_kernel`` record per counted
+   launch.
 7. Both paged-attention kernels against their plain version on the final
-   caches (layers 0 and 29, bf16, atol 1e-2), with their times, the
-   plain version's, and the bound (the live K/V slots, tables, q and out
-   over the memory rate); ``pool_compact`` on the 491,520-byte pages.
+   caches (layers 0 and 29, bf16, atol 1e-2): a repeat call bit-equal to
+   the first (the splits merge in a fixed order), and two planted faults,
+   each the plain version on altered inputs, that must read above the
+   limit: the first page of the second split dropped from every row, and
+   every length one slot short.  Then their times, the plain version's,
+   and the bound (the live K/V slots, tables, q and out over the memory
+   rate); ``pool_compact`` on the 491,520-byte pages.
 8. The smoke config (3 layers, d_model 96, f32) on the card against the
    CPU path, through ``repro_torch.serving.crosscheck``: equal tables,
    refcounts and lengths, logits within 1e-5 of the step's largest logit,
@@ -100,6 +110,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -233,6 +244,25 @@ def profile_summary(prof, wall_ms: float, per: int, unit: str, kernel: str, laun
     }
 
 
+def ptxas_report(log: str) -> list:
+    """(function, registers, spill store bytes, spill load bytes) of each
+    function in a ``-Xptxas=-v`` build log; the paged-attention
+    instantiations by their template arguments."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+            if m := re.search(r"paged_attention_kernelI(13__nv_bfloat16|f)Lb([01])ELi(\d+)E", name):
+                dtype = "bf16" if m.group(1) != "f" else "f32"
+                name = f"paged_attention_kernel<{dtype}, delta={m.group(2)}, d={m.group(3)}>"
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            rows.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
+    return rows
+
+
 def memory_rate(name: str) -> float:
     for key, rate in MEMORY_RATE:
         if key in name:
@@ -303,6 +333,7 @@ def serve_phases(dev, rate):
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.cow_gather import cow_gather_ref, pool_compact
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
+    from repro_torch.kernels.paged_attention.ops import split_plan
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models.model import LanguageModel
     from repro_torch.serving import kv_cache as kvc
@@ -424,10 +455,16 @@ def serve_phases(dev, rate):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     traced = dispatch.launch_counts()["paged_attention"] - before
+    summary = profile_summary(prof, wall * 1e3, SERVE_PROFILE_TOKENS, "token",
+                              "paged_attention_kernel", traced)
+    if summary["records_complete"]:  # the split kernel and its merge
+        summary["paged_attention_ms_per_token"] = {
+            name: sum(us for k, (us, _) in kernel_events(prof).items() if name in k)
+            / 1e3 / SERVE_PROFILE_TOKENS
+            for name in ("paged_attention_kernel", "paged_attention_combine")
+        }
     print(json.dumps({"serve_profile": {
-        "tokens": SERVE_PROFILE_TOKENS, "rows": SERVE_SLOTS,
-        **profile_summary(prof, wall * 1e3, SERVE_PROFILE_TOKENS, "token",
-                          "paged_attention_kernel", traced),
+        "tokens": SERVE_PROFILE_TOKENS, "rows": SERVE_SLOTS, **summary,
     }}), flush=True)
 
     # -- 7. each paged-attention kernel against its plain version ----------
@@ -440,14 +477,28 @@ def serve_phases(dev, rate):
     ):
         cache = run["engine"].cache
         kw = dict(parent=cache.pool.parent, dirty=cache.pool.dirty) if op.endswith("delta") else {}
-        errs = []
+        pages, splits = split_plan(SERVE_SLOTS, cfg.n_kv_heads, cache.tables.shape[1], SERVE_BLOCK)
+        # Planted faults: the first page of split 1 dropped from every row;
+        # every length one slot short.
+        dropped = cache.tables.clone()
+        dropped[:, pages] = -1
+        planted = {"page dropped at a split edge": (dropped, cache.lengths),
+                   "length one slot short": (cache.tables, cache.lengths - 1)}
+        errs, faults = [], {name: 0.0 for name in planted}
         for layer in (0, cfg.n_layers - 1):
             k_pool, v_pool = kvc.layer_views(cache, layer)
             got = paged_attention(q, k_pool, v_pool, cache.tables, cache.lengths, **kw)
             want = paged_attention_ref(q, k_pool, v_pool, cache.tables, cache.lengths, **kw)
             errs.append((got.float() - want.float()).abs().max().item())
+            require(torch.equal(got, paged_attention(q, k_pool, v_pool, cache.tables, cache.lengths, **kw)),
+                    f"{op}: a repeat call is bit-equal to the first")
+            for name, (tables, lengths) in planted.items():
+                wrong = paged_attention_ref(q, k_pool, v_pool, tables, lengths, **kw)
+                faults[name] = max(faults[name], (got.float() - wrong.float()).abs().max().item())
         err = max(errs)
         require(err <= 1e-2, f"{op}: bf16 kernel within atol 1e-2 of its plain version ({err})")
+        for name, reading in faults.items():
+            require(reading > 1e-2, f"{op}: planted fault ({name}) reads above atol 1e-2 ({reading})")
         k_pool, v_pool = kvc.layer_views(cache, cfg.n_layers - 1)
         args = (q, k_pool, v_pool, cache.tables, cache.lengths)
         ms = device_ms(lambda: paged_attention(*args, **kw))
@@ -464,8 +515,10 @@ def serve_phases(dev, rate):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
             "library_note": "no single PyTorch call reads K/V through a block table",
-            "call_ms": call_ms,
+            "call_ms": call_ms, "pages_per_split": pages, "splits": splits, "planted_faults": faults,
         })
+        print(f"kernel {op}: {splits} splits of {pages} pages; repeat call bit-equal; planted faults "
+              f"read {json.dumps(faults)} (limit 1e-2)", flush=True)
         print(f"kernel {op}: max |kernel - plain| {err!r} (layers 0 and {cfg.n_layers - 1}, bf16); "
               f"{ms:.4f} ms on the device, {call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, "
               f"bound {max(bytes_ms, ops_ms):.4f} ms ({moved} bytes; operations {ops_ms:.4f} ms)",
@@ -914,9 +967,8 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.relative_to(ROOT)}", flush=True)
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if any(key in line for key in ("registers", "spill", "Function properties", "==")):
-            print("  ptxas", line.strip(), flush=True)
+    for fn, regs, stores, loads in ptxas_report((lib.parent / "build.log").read_text()):
+        print(f"  ptxas {fn}: {regs} registers, spill stores {stores} B, loads {loads} B", flush=True)
 
     # -- 2. the main path ---------------------------------------------------
     n, steps = N_PARTICLES, N_STEPS

@@ -12,6 +12,11 @@ CUDA tensors launch ``csrc/paged_attention.cu`` (one source, templated on
 the variant); CPU tensors run :func:`paged_attention_ref`.  The pools may
 be strided views of the ``[blocks, L, 2, bs, KVH, hd]`` pool: only their
 last dimension must be contiguous, and the kernel takes their strides.
+
+The kernel splits each row's pages into runs (:func:`split_plan`), one
+CTA per run and KV head, and a second kernel merges a row's runs in
+order.  On the CUDA route the wrapper raises on what the kernel does not
+take (:func:`check_kernel_inputs`); the plain version takes any shape.
 """
 
 from __future__ import annotations
@@ -28,6 +33,36 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 _P, _I, _D, _C = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Head dims the kernel is built for (``csrc/paged_attention.cu``'s dispatch):
+#: those of the repository's dense configs.
+HEAD_DIMS = (16, 64, 128, 256)
+#: Query heads per KV head: the rows of one tensor-core tile.
+MAX_GROUP = 16
+#: Slots per warp tile; a split is a whole number of tiles.
+SLOT_TILE = 16
+#: The fewest CTAs a call aims for: two on each of an H100's 132 SMs.
+MIN_CTAS = 2 * 132
+
+
+def split_plan(b: int, kvh: int, nb: int, bs: int) -> tuple[int, int]:
+    """``(pages_per_split, splits)`` for ``b`` rows of ``nb`` pages of
+    ``bs`` slots over ``kvh`` KV heads.
+
+    Split ``i`` covers page indices ``[i * pages_per_split, (i + 1) *
+    pages_per_split)`` of every row, so each page index lies in exactly
+    one split.  The plan reads the shapes alone, never the tables, the
+    lengths or the pool: a row's result does not depend on its contents'
+    layout, only on its bytes.  A split is a whole number of 16-slot
+    tiles, and the splits are as long as allows ``b * kvh * splits >=
+    MIN_CTAS`` where the row has pages enough.
+    """
+    if bs <= 0 or (SLOT_TILE % bs and bs % SLOT_TILE):
+        raise ValueError(f"block size {bs}: the kernel takes a divisor or a multiple of {SLOT_TILE}")
+    unit = max(1, SLOT_TILE // bs)  # pages in the smallest whole run of tiles
+    units = -(-nb // unit)
+    want = -(-MIN_CTAS // max(1, b * kvh))
+    pages = max(1, units // want) * unit
+    return pages, max(1, -(-nb // pages))
 
 
 def paged_attention(
@@ -67,6 +102,23 @@ def _check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor) ->
         raise ValueError(f"{h} query heads do not group over {k_pool.shape[2]} KV heads")
 
 
+def check_kernel_inputs(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor) -> None:
+    """Raise on what the CUDA kernel does not take: a head dim outside
+    :data:`HEAD_DIMS`, more than :data:`MAX_GROUP` query heads per KV head,
+    or a q or pool whose base or strides are not 16-byte aligned (its loads
+    are 16 bytes a lane).  :func:`split_plan` refuses the block sizes it
+    cannot split into whole 16-slot tiles."""
+    _, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIMS}")
+    if h // k_pool.shape[2] > MAX_GROUP:
+        raise ValueError(f"{h // k_pool.shape[2]} query heads per KV head; the kernel takes <= {MAX_GROUP}")
+    elem = q.element_size()
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16 or any(st * elem % 16 for st in t.stride()[:-1]):
+            raise ValueError(f"{name}: base and strides must be multiples of 16 bytes")
+
+
 def _launch(q, k_pool, v_pool, tables, lengths, parent, dirty, delta: bool) -> torch.Tensor:
     b, h, d = q.shape
     check(q, "q", tuple(_DTYPES), (b, h, d))
@@ -84,11 +136,16 @@ def _launch(q, k_pool, v_pool, tables, lengths, parent, dirty, delta: bool) -> t
         return paged_attention_ref(
             q, k_pool, v_pool, tables, lengths, parent=parent, dirty=dirty
         )
+    check_kernel_inputs(q, k_pool, v_pool)
+    kvh, bs = k_pool.shape[2], k_pool.shape[1]
+    pages, splits = split_plan(b, kvh, nb, bs)
     out = torch.empty_like(q)
+    # Each (row, KV head, split)'s partial state: acc[G][d], m[G], l[G].
+    ws = torch.empty(b * kvh * splits * (h // kvh) * (d + 2), dtype=torch.float32, device=q.device)
     null = ctypes.c_void_p(0)
     _build.launch(
         "paged_attention",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _C, _C),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _C, _C),
         q.device,
         _build.ptr(q),
         _build.ptr(k_pool),
@@ -98,12 +155,15 @@ def _launch(q, k_pool, v_pool, tables, lengths, parent, dirty, delta: bool) -> t
         _build.ptr(parent) if delta else null,
         _build.ptr(dirty) if delta else null,
         _build.ptr(out),
+        _build.ptr(ws),
         b,
         h,
-        k_pool.shape[2],
+        kvh,
         d,
-        k_pool.shape[1],
+        bs,
         nb,
+        pages,
+        splits,
         k_pool.stride(0),
         k_pool.stride(1),
         k_pool.stride(2),

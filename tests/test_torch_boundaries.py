@@ -10,6 +10,7 @@ that has none:
 from __future__ import annotations
 
 import ast
+import inspect
 import math
 from pathlib import Path
 
@@ -29,6 +30,12 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.refcount_update import refcount_delta  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
+    MIN_CTAS,
+    SLOT_TILE,
+    check_kernel_inputs,
+    split_plan,
+)
 from repro_torch.kernels.resample import resample_systematic_kernel, systematic_comb  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.serving import crosscheck as cc  # noqa: E402
@@ -470,3 +477,189 @@ class TestPagedAttentionOnCard:
         want = pool_compact(pool, perm)
         got = pool_compact(pool.to(cuda_device), perm.to(cuda_device))
         assert torch.equal(got.cpu(), want)
+
+
+def to_device(device, *xs):
+    return tuple(x.to(device) for x in xs)
+
+
+def paged_check(got, want, dtype):
+    atol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), atol=atol, rtol=0)
+
+
+def renumbered(data, tables, parent, dirty, seed):
+    """The same pages under other ids, as ``compact_cache`` leaves them:
+    pool rows permuted (the dump row stays last), tables and parents
+    renumbered to match."""
+    rows = parent.shape[0]
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(rows))
+    new_data = data.clone()
+    new_data[perm] = data[:rows]
+    new_tables = torch.where(tables >= 0, perm[tables.clamp(min=0).long()].to(torch.int32), -1)
+    new_parent = torch.full_like(parent, -1)
+    new_parent[perm] = torch.where(parent >= 0, perm[parent.clamp(min=0).long()].to(torch.int32), -1)
+    new_dirty = torch.zeros_like(dirty)
+    new_dirty[perm] = dirty
+    return new_data, new_tables, new_parent, new_dirty
+
+
+# (b, KVH, nb, bs) the split plan meets: the serve cell, the smoke config,
+# paged_case, one long row, block sizes 8 and 32, no pages, and more rows
+# than the card needs splits for.
+PLAN_SHAPES = [
+    (16, 2, 41, 16),
+    (4, 2, 9, 4),
+    (7, 2, 6, 16),
+    (1, 1, 2200, 16),
+    (3, 8, 100, 8),
+    (5, 2, 33, 32),
+    (2, 2, 0, 16),
+    (300, 2, 50, 16),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "b{}-kvh{}-nb{}-bs{}".format(*s))
+def test_split_plan_covers_each_page_once(shape):
+    b, kvh, nb, bs = shape
+    pages, splits = split_plan(b, kvh, nb, bs)
+    owners = [[sp for sp in range(splits) if sp * pages <= j < (sp + 1) * pages] for j in range(nb)]
+    assert all(len(o) == 1 for o in owners)  # every page index in exactly one split
+    assert splits == max(1, len({o[0] for o in owners}))  # no split past the pages
+    assert pages * bs % SLOT_TILE == 0  # whole 16-slot tiles
+    units = -(-nb // max(1, SLOT_TILE // bs))
+    if units >= -(-MIN_CTAS // (b * kvh)):  # pages enough: two CTAs per SM
+        assert b * kvh * splits >= MIN_CTAS
+    assert split_plan(b, kvh, nb, bs) == (pages, splits)
+
+
+def test_split_plan_reads_shapes_only():
+    """The plan takes the shapes and nothing else (never tables, lengths or
+    the pool), and at the serve cell's shape it puts 4 pages in each of 11
+    splits: 352 CTAs on 132 SMs."""
+    assert list(inspect.signature(split_plan).parameters) == ["b", "kvh", "nb", "bs"]
+    assert split_plan(16, 2, 41, 16) == (4, 11)
+    with pytest.raises(ValueError, match="block size"):
+        split_plan(1, 1, 4, 12)
+
+
+@pytest.mark.parametrize("case", ["head_dim", "group", "stride", "base"])
+def test_kernel_input_checks_refuse(case):
+    """What the CUDA route refuses (it checks before any launch)."""
+    q, data, _, tables, lengths, _, _ = paged_case(0, torch.bfloat16, rows=4, layers=1, b=3, nb=3)
+    k_pool, v_pool = data[:, 0, 0], data[:, 0, 1]
+    check_kernel_inputs(q, k_pool, v_pool)
+    if case == "head_dim":
+        q, k_pool = q[..., :48].contiguous(), k_pool[..., :48].contiguous()
+        v_pool = k_pool
+    elif case == "group":
+        q = torch.zeros((3, 34, 128), dtype=torch.bfloat16)
+    elif case == "stride":
+        k_pool = v_pool = torch.zeros((5, 16, 2, 130), dtype=torch.bfloat16)[..., :128]
+    else:
+        flat = torch.zeros(5 * 16 * 2 * 128 + 8, dtype=torch.bfloat16)
+        k_pool = v_pool = flat[1 : 1 + 5 * 16 * 2 * 128].view(5, 16, 2, 128)
+    with pytest.raises(ValueError):
+        check_kernel_inputs(q, k_pool, v_pool)
+
+
+# (G, d) the repository's dense configs give (G 5: qwen2.5-32b).
+GROUP_DIMS = [(1, 128), (2, 128), (12, 128), (5, 128), (2, 64), (2, 256)]
+
+
+@pytest.mark.cuda
+class TestPagedAttentionSplits:
+    """The split kernel against its plain version on the card: split
+    edges, NULL splits, every (G, d) of the dense configs, repeat calls and
+    renumbered pools.  bf16 to atol 1e-2, f32 to atol 1e-5."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("delta", [False, True])
+    def test_split_edges(self, cuda_device, dtype, delta):
+        """The serve cell's shape (16 rows of 41 pages of 16, G 12, d 128:
+        4 pages a split): lengths at a split edge, one past and one short of
+        it, shorter than one split, zero and full; a split made only of
+        NULL pages; a row whose pages past its first split are all NULL."""
+        b, nb, bs = 16, 41, 16
+        q, data, _, tables, lengths, parent, dirty = paged_case(
+            7, dtype, rows=80, layers=1, b=b, nb=nb
+        )
+        pages, _ = split_plan(b, 2, nb, bs)
+        edge = pages * bs
+        lengths = torch.tensor(
+            [0, 1, 5, edge - 1, edge, edge + 1, 2 * edge, 2 * edge + 1, 3 * edge - 1,
+             7 * edge + 3, nb * bs - 1, nb * bs, 3 * edge + 5, nb * bs, edge + 2, 9 * edge],
+            dtype=torch.int32,
+        )
+        tables[12, pages : 2 * pages] = -1  # split 1 of row 12: NULL pages only
+        tables[13, pages:] = -1  # row 13: nothing past split 0
+        q, data, tables, lengths, parent, dirty = to_device(
+            cuda_device, q, data, tables, lengths, parent, dirty
+        )
+        kw = dict(parent=parent, dirty=dirty) if delta else {}
+        args = (q, data[:, 0, 0], data[:, 0, 1], tables, lengths)
+        got = paged_attention(*args, **kw)
+        paged_check(got, paged_attention_ref(*args, **kw), dtype)
+        assert not got[0].any()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("delta", [False, True])
+    @pytest.mark.parametrize("group,d", GROUP_DIMS)
+    def test_group_and_head_dim(self, cuda_device, group, d, delta, dtype):
+        q, data, _, tables, lengths, parent, dirty = paged_case(
+            8, dtype, layers=1, d=d, h=2 * group
+        )
+        q, data, tables, lengths, parent, dirty = to_device(
+            cuda_device, q, data, tables, lengths, parent, dirty
+        )
+        kw = dict(parent=parent, dirty=dirty) if delta else {}
+        args = (q, data[:, 0, 0], data[:, 0, 1], tables, lengths)
+        paged_check(paged_attention(*args, **kw), paged_attention_ref(*args, **kw), dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_long_rows_use_the_ring(self, cuda_device, dtype):
+        """3 rows of 600 pages: 13 pages a split, so each warp takes three
+        to seven tiles through its two-stage ring; then a repeat call."""
+        q, data, _, tables, lengths, parent, dirty = paged_case(
+            9, dtype, layers=1, b=3, nb=600
+        )
+        assert split_plan(3, 2, 600, 16) == (13, 47)
+        lengths = torch.tensor([600 * 16, 5003, 17], dtype=torch.int32)
+        q, data, tables, lengths, parent, dirty = to_device(
+            cuda_device, q, data, tables, lengths, parent, dirty
+        )
+        args = (q, data[:, 0, 0], data[:, 0, 1], tables, lengths)
+        kw = dict(parent=parent, dirty=dirty)
+        got = paged_attention(*args, **kw)
+        paged_check(got, paged_attention_ref(*args, **kw), dtype)
+        assert torch.equal(got, paged_attention(*args, **kw))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("delta", [False, True])
+    def test_two_calls_bit_equal(self, cuda_device, dtype, delta):
+        q, data, _, tables, lengths, parent, dirty = paged_case(
+            10, dtype, rows=80, layers=1, b=16, nb=41
+        )
+        q, data, tables, lengths, parent, dirty = to_device(
+            cuda_device, q, data, tables, lengths, parent, dirty
+        )
+        kw = dict(parent=parent, dirty=dirty) if delta else {}
+        args = (q, data[:, 0, 0], data[:, 0, 1], tables, lengths)
+        first = paged_attention(*args, **kw)
+        assert all(torch.equal(first, paged_attention(*args, **kw)) for _ in range(5))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("delta", [False, True])
+    def test_renumbered_pool_bit_equal(self, cuda_device, dtype, delta):
+        """Pool rows permuted, tables (and parents) renumbered to match:
+        the same bytes in the same order, so the same bits."""
+        q, data, _, tables, lengths, parent, dirty = paged_case(
+            11, dtype, rows=80, layers=1, b=16, nb=41
+        )
+        moved = renumbered(data, tables, parent, dirty, seed=11)
+        outs = []
+        for d_, t_, p_, dy in ((data, tables, parent, dirty), moved):
+            qd, d_, t_, ld, p_, dy = to_device(cuda_device, q, d_, t_, lengths, p_, dy)
+            kw = dict(parent=p_, dirty=dy) if delta else {}
+            outs.append(paged_attention(qd, d_[:, 0, 0], d_[:, 0, 1], t_, ld, **kw))
+        assert torch.equal(outs[0], outs[1])
