@@ -30,7 +30,10 @@ Phases (any failed check raises, and the script exits non-zero):
    between CUDA events, the calls queued behind a spin kernel.
    ``refcount_update`` gets the tables' row length and prints the premise
    of its design: the mean run of one block down the particle axis and
-   the number of distinct blocks.
+   the number of distinct blocks; ``clone_chain`` prints the same premise
+   (the mean runs of its new and old tables).  ``cow_write`` must leave
+   the dump row zero, also one that held data before the call (its CUDA
+   route zeroes it in the same launch).
 4. A small filter run on the card against the same run on the CPU path,
    fed the same draws: equal tables, log-evidence to rtol 1e-5.
 5. One more LAZY_SR run under ``torch.profiler`` (CUDA activity only),
@@ -1103,7 +1106,12 @@ def main() -> int:
     values = torch.randn((n, 1), generator=gen, device=dev)
     got = cow_write(data.clone(), src, dst, pos, values)
     want = cow_write_ref(data.clone(), src, dst, pos, values)
-    require(not got[nb].any(), "cow_write re-zeroes the dump row")
+    require(not got[nb].any(), "cow_write leaves the dump row zero")
+    dirty = data.clone()
+    dirty[nb] = 1.0
+    require(not cow_write(dirty, src, dst, pos, values)[nb].any() and torch.equal(dirty[:nb], got[:nb]),
+            "cow_write zeroes a dump row that held data on entry, in its one launch")
+    del dirty
     live_rows = int((kind != 2).sum())
     scratch_k, scratch_p = data.clone(), data.clone()
 
@@ -1173,8 +1181,10 @@ def main() -> int:
           "clone_chain with NULL entries")
     got = clone_chain_kernel(cum, u, tables, nb)
     want = clone_chain_ref(cum, u, tables, nb)
+    # The kernel's premise: both tables repeat a block down the particle axis.
     print(f"clone_chain: share of entries whose new and old block agree "
-          f"{(got[1] == tables).float().mean().item()!r}", flush=True)
+          f"{(got[1] == tables).float().mean().item()!r}; mean run down the particle axis "
+          f"{mean_run(got[1])!r} (new), {mean_run(tables)!r} (old)", flush=True)
     report(
         "clone_chain", "src/repro/kernels/clone_chain/kernel.py:96",
         "src/repro_torch/csrc/clone_chain.cu", got, want,

@@ -1,5 +1,7 @@
-// One table entry's share of the clone bookkeeping, for clone_chain.cu
-// (refcount_update.cu follows runs of equal ids instead).
+// One table entry's share of the clone bookkeeping, per entry: the design
+// refcount_update.cu and clone_chain.cu replaced with run-following
+// (column_runs.cuh), kept for scripts/torch_refcount_split.py, which
+// times it.
 //
 // The entry held block `b` before the clone and holds block `a` after it:
 //   delta[a] += 1, delta[b] -= 1, member[a] = 1

@@ -11,64 +11,35 @@
 // What bounds it on the card: the bytes of the two tables (134 MB at the
 // filter's 65,536 x 256), if the updates stay off the critical path.
 // The TPU kernel one-hot compares every entry against every block id
-// (O(e * nb)).  A per-entry update (refcount_hist.cuh, which clone_chain
-// keeps) reads member[new] for every entry, stores it where it is still
-// 0, and adds two atomics per entry whose ids differ.  The filter's
-// tables make those collide: after systematic or stratified resampling
-// the ancestors are sorted, so a column holds the same block down the
-// particle axis in runs (~120 entries on average at N = 65,536, with up
-// to thousands of entries on one block), while one row's entries are all
-// different blocks.  On an H100 the guarded member stores took 1.02 of
-// the per-entry kernel's 1.11 ms at that shape, the atomics 0.01 ms, the
-// loads 0.07 ms (scripts/torch_refcount_split.py).
+// (O(e * nb)).  A per-entry update (refcount_hist.cuh, the form
+// scripts/torch_refcount_split.py times) reads member[new] for every
+// entry, stores it where it is still 0, and adds two atomics per entry
+// whose ids differ.  The filter's tables make those collide: after
+// systematic or stratified resampling the ancestors are sorted, so a
+// column holds the same block down the particle axis in runs (~120
+// entries on average at N = 65,536, with up to thousands of entries on
+// one block), while one row's entries are all different blocks.  On an
+// H100 the guarded member stores took 1.02 of the per-entry kernel's 1.11
+// ms at that shape, the atomics 0.01 ms, the loads 0.07 ms
+// (scripts/torch_refcount_split.py).
 //
-// So the update follows the runs.  Each warp owns a segment of SEG rows
-// and 32 * VEC columns; lane l owns VEC neighbouring columns and walks
-// them down the segment.  A warp's row load is one coalesced 32 * VEC
-// word read (16-byte loads when the rows allow), UNROLL rows at a time
-// for memory-level parallelism.  Per column the lane keeps three runs of
-// equal keys: the new id (membership), the new id where it differs from
-// the old (+len) and the old id where it differs from the new (-len).  A
-// run that ends issues one guarded member store or one atomicAdd of its
-// length; an entry whose new and old ids agree still costs no atomic.
-// Integer atomics commute, so the result is bit-exact whatever the order.
+// So the update follows the runs (column_runs.cuh, which clone_chain.cu
+// shares).  Each warp owns a segment of SEG rows and 32 * VEC columns;
+// lane l owns VEC neighbouring columns and walks them down the segment.
+// A warp's row load is one coalesced 32 * VEC word read (16-byte loads
+// when the rows allow), UNROLL rows at a time for memory-level
+// parallelism.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "column_runs.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int SEG = 128;   // rows a warp walks
 constexpr int UNROLL = 8;  // rows loaded before they are walked
-
-struct Run {
-  int32_t id = -1;  // -1: no run (or a run of entries that count nothing)
-  int32_t len = 0;
-};
-
-__device__ __forceinline__ void extend(Run& run, int32_t key, int32_t sign, int32_t* delta) {
-  if (key == run.id) {
-    ++run.len;
-    return;
-  }
-  if (run.id >= 0) atomicAdd(delta + run.id, sign * run.len);
-  run.id = key;
-  run.len = 1;
-}
-
-template <int VEC>
-__device__ __forceinline__ void load(const int32_t* __restrict__ p, int32_t (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
-  } else {
-    x[0] = __ldg(p);
-  }
-}
 
 template <int VEC>
 __global__ void __launch_bounds__(THREADS) refcount_runs_kernel(
@@ -81,40 +52,22 @@ __global__ void __launch_bounds__(THREADS) refcount_runs_kernel(
   if (r0 >= rows || c0 >= cols) return;
   const int64_t r1 = r0 + SEG < rows ? r0 + SEG : rows;
 
-  int32_t seen[VEC];  // the last new id marked in member, per column
-  Run plus[VEC], minus[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) seen[j] = -1;
-
+  ColumnRuns<VEC> runs;
   for (int64_t r = r0; r < r1; r += UNROLL) {
     int32_t a[UNROLL][VEC], b[UNROLL][VEC];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u)
       if (r + u < r1) {
-        load<VEC>(new_ids + (r + u) * cols + c0, a[u]);
-        load<VEC>(old_ids + (r + u) * cols + c0, b[u]);
+        load_ids<VEC>(new_ids + (r + u) * cols + c0, a[u]);
+        load_ids<VEC>(old_ids + (r + u) * cols + c0, b[u]);
       }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       if (r + u >= r1) break;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const int32_t x = a[u][j], y = b[u][j];
-        const bool x_ok = x >= 0 && x < nb, y_ok = y >= 0 && y < nb;
-        if (x_ok && x != seen[j]) {
-          if (member[x] == 0) member[x] = 1;
-          seen[j] = x;
-        }
-        extend(plus[j], x_ok && x != y ? x : -1, 1, delta);
-        extend(minus[j], y_ok && x != y ? y : -1, -1, delta);
-      }
+      runs.add(a[u], b[u], nb, delta, member);
     }
   }
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    extend(plus[j], -1, 1, delta);
-    extend(minus[j], -1, -1, delta);
-  }
+  runs.finish(delta);
 }
 
 template <int VEC>

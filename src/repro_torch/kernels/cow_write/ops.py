@@ -4,10 +4,12 @@
 :func:`cow_write_delta` is ``cow_write_delta_pallas``'s (sub-block delta
 COW: only the ``keep`` slots are copied, the rest are zeroed).  Each has
 its own ``launches`` counter.  CUDA tensors launch ``csrc/cow_write.cu``
-(one source, templated on the variant); CPU tensors run
+(one kernel per variant); CPU tensors run
 :func:`cow_write_ref` / :func:`cow_write_delta_ref`.  Both write into
 ``data`` in place (the TPU kernel's ``input_output_aliases``) and are
-bit-exact on every non-dump row; the dump row is re-zeroed after either.
+bit-exact on every non-dump row; the dump row is zero after either
+(the whole-block kernel zeroes it in its own launch, the other paths
+with ``zero_()`` after the write).
 """
 
 from __future__ import annotations
@@ -53,10 +55,12 @@ def cow_write(
     if route(data, src, dst, pos, values) == "cpu":
         cow_write_ref(data, src, dst, pos, values)
     elif n > 0:
+        # The kernel skips masked rows and zeroes the dump row itself.
         _launch(data, src, dst, pos, values, None)
         cow_write.launches += 1
-    # Skipped rows self-copied the dump row in no fixed order; re-zero
-    # it so pools compare leaf-for-leaf across paths.
+        return data
+    # Masked rows self-copied the dump row; re-zero it so pools compare
+    # leaf-for-leaf across paths.
     data[-1].zero_()
     return data
 

@@ -204,6 +204,23 @@ def genealogy_tables(rng, n, mb, nb):
     return old[anc], old
 
 
+def write_routing(rng, nb, n, bs, item):
+    """A COW write's routing as ``store._write_impl`` builds it over a pool
+    of ``nb`` blocks of ``bs`` items: copy rows (several per shared
+    source), in-place rows, masked rows on the dump row (zero)."""
+    data = torch.as_tensor(rng.standard_normal((nb + 1, bs, *item)).astype(np.float32))
+    data[nb] = 0
+    ids = torch.as_tensor(rng.permutation(nb).astype(np.int32))
+    kind = torch.as_tensor(rng.integers(0, 3, n))  # copy / in place / masked
+    shared = ids[n : n + 5][torch.as_tensor(rng.integers(0, 5, n))]
+    src = torch.where(kind == 0, shared, ids[:n])
+    src = torch.where(kind == 2, nb, src).int()
+    dst = torch.where(kind == 2, nb, ids[:n]).int()
+    pos = torch.as_tensor(rng.integers(0, bs, n).astype(np.int32))
+    values = torch.as_tensor(rng.standard_normal((n, *item)).astype(np.float32))
+    return data, src, dst, pos, values
+
+
 def check_flash(gen, shape, dtype, window):
     """flash_attention on the card against its plain version.  f32: atol
     and rtol 2e-5.  bf16: atol and rtol 2e-2, and each element within
@@ -248,6 +265,38 @@ class TestKernelsOnCard:
         want = cow_write(data.clone(), src, dst, pos, values)
         args = [x.to(cuda_device) for x in (data, src, dst, pos, values)]
         assert torch.equal(cow_write(*args).cpu(), want)
+
+    @pytest.mark.parametrize(
+        "bs,item,n",
+        [(4, (1,), 4096), (8, (1,), 1000), (4, (3,), 257), (4, (2,), 300), (3, (1,), 333), (2, (), 77)],
+    )
+    def test_cow_write_shapes(self, cuda_device, bs, item, n):
+        """4 and 8 words per block with one-word items (the kernel's own
+        instantiations, 16-byte chunks), items of 2 and 3 words and blocks
+        of 3 and 2 words (runtime sizes, 4-byte words); N off the 256-row
+        CTA.  Exact, and the dump row zero after the call."""
+        data, src, dst, pos, values = write_routing(np.random.default_rng(n), n + 500, n, bs, item)
+        want = cow_write(data.clone(), src, dst, pos, values)
+        got = cow_write(*[x.to(cuda_device) for x in (data, src, dst, pos, values)]).cpu()
+        assert torch.equal(got, want) and not got[-1].any()
+
+    def test_cow_write_every_row_masked(self, cuda_device):
+        """Every row routed to the dump row: the pool is left as it was."""
+        data, _, _, pos, values = write_routing(np.random.default_rng(7), 3000, 700, 4, (1,))
+        dump = torch.full((700,), 3000, dtype=torch.int32)
+        got = cow_write(*[x.to(cuda_device) for x in (data, dump, dump, pos, values)]).cpu()
+        assert torch.equal(got, data)
+
+    def test_cow_write_clears_a_dirty_dump_row(self, cuda_device):
+        """A dump row that holds data on entry is zero after the call, in
+        the same launch, and the other rows equal the plain version's."""
+        data, src, dst, pos, values = write_routing(np.random.default_rng(8), 3000, 900, 4, (1,))
+        data[-1] = 5.0
+        want = cow_write(data.clone(), src, dst, pos, values)
+        before = cow_write.launches
+        got = cow_write(*[x.to(cuda_device) for x in (data, src, dst, pos, values)]).cpu()
+        assert cow_write.launches == before + 1
+        assert torch.equal(got, want) and not got[-1].any()
 
     def test_cow_write_delta(self, cuda_device):
         """Copy rows keeping some slots, copy rows keeping none (source
@@ -372,6 +421,31 @@ class TestKernelsOnCard:
             perm = table[:300]
             want = pool_compact(pool, perm)
             assert torch.equal(pool_compact(pool.to(cuda_device), perm.to(cuda_device)).cpu(), want)
+
+    @pytest.mark.parametrize(
+        "case", ["1000x256", "777x37", "5000x1", "130x129", "0x16", "300x64 unaligned"]
+    )
+    def test_clone_chain_genealogy(self, cuda_device, case):
+        """test_refcount_delta_genealogy's tables through the fused chain:
+        runs down the particle axis, a hot block over half a column, NULL
+        tails; N off the kernel's segments, row lengths of 1, 37 and 129
+        (4-byte loads), no rows, and tables whose base is not 16-byte
+        aligned (4-byte loads).  Exact against the plain version."""
+        rng = np.random.default_rng(2)
+        nb = 500
+        n, mb = (int(x) for x in case.split()[0].split("x"))
+        _, old = genealogy_tables(rng, n, mb, nb)
+        logw = torch.as_tensor((3 * rng.standard_normal(n)).astype(np.float32))
+        cum = weights_cdf(logw) if n else torch.zeros(0)
+        u = torch.as_tensor(np.float32(rng.random()))
+        tables = torch.as_tensor(old)
+        want = clone_chain_kernel(cum, u, tables, nb)
+        t_dev = tables.to(cuda_device)
+        if case.endswith("unaligned"):  # a view 4 bytes into its storage
+            t_dev = torch.cat([t_dev.reshape(-1)[:1], t_dev.reshape(-1)])[1:].view(n, mb)
+        got = clone_chain_kernel(cum.to(cuda_device), u.to(cuda_device), t_dev, nb)
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a.cpu(), b)
 
     @pytest.mark.parametrize("n", [37, 4096, 65536])
     def test_clone_chain(self, cuda_device, n):

@@ -330,6 +330,23 @@ def chain_case(seed, n, mb=5, nb=60):
     return cum, u, tables, nb
 
 
+def genealogy_chain_case(n, mb, nb=500):
+    """A weight CDF peaked enough for long runs of one ancestor, and old
+    tables with each column sorted down the particle axis, block 7 over
+    the first half of column 0, and NULL past each row's length."""
+    rng = np.random.default_rng(n * 1000 + mb)
+    logw = (3 * rng.standard_normal(n)).astype(np.float32)
+    w = np.exp(logw - logw.max())
+    cum = np.cumsum(w, dtype=np.float32)
+    cum = (cum / cum[-1]).astype(np.float32)
+    u = np.float32(rng.random())
+    tables = np.sort(rng.integers(0, nb, (n, mb)), axis=0).astype(np.int32)
+    tables[: max(1, n // 2), 0] = 7
+    lengths = rng.integers(mb // 2, mb + 1, n)
+    tables[np.arange(mb)[None, :] >= lengths[:, None]] = -1
+    return cum, u, tables, nb
+
+
 class TestCloneChain:
     @pytest.mark.parametrize("seed", range(4))
     @pytest.mark.parametrize("n", [5, 37, 100])
@@ -355,6 +372,29 @@ class TestCloneChain:
         got = clone_chain_kernel(t(cum), t(np.array([u])), t(tables), nb)
         for a, b in zip(got, want, strict=True):
             eq(a, b)
+
+    @pytest.mark.parametrize("case", ["1x37", "130x129", "777x1", "777x256", "64x37", "256x256"])
+    def test_genealogy_tables(self, case):
+        """Tables as resampling leaves them, the inputs the card's kernel
+        follows in runs: each column a sorted block sequence down the
+        particle axis, a hot block over half of column 0, NULL tails; the
+        comb's ancestors sorted.  N off the kernel's segments (1, 130,
+        777) and row lengths of 1, 37, 129 and 256.  Exact against the
+        eager oracle and, for a power-of-two N, the Pallas kernel."""
+        n, mb = (int(x) for x in case.split("x"))
+        cum, u, tables, nb = genealogy_chain_case(n, mb)
+        got = clone_chain_kernel(t(cum), t(np.array([u])), t(tables), nb)
+        wants = [jax_clone_chain_ref(jnp.asarray(cum), jnp.float32(u), jnp.asarray(tables), nb)]
+        if n & (n - 1) == 0:
+            wants.append(clone_chain_pallas(
+                jnp.asarray(cum), jnp.asarray([u]), jnp.asarray(tables), num_blocks=nb, interpret=True,
+            ))
+        for want in wants:
+            for a, b in zip(got, want, strict=True):
+                eq(a, b)
+        if n > 100:  # the premise: the new table repeats a block down each column
+            new = got[1].numpy()
+            assert (new[1:] == new[:-1]).mean() > 0.5
 
     @pytest.mark.parametrize("n", [3, 37, 1000, 65535])
     def test_comb_positions_are_ieee_division(self, n):
