@@ -86,8 +86,12 @@ Phases (any failed check raises, and the script exits non-zero):
     of all N (valid prefix) and ``read_at`` bit-equal between the runs;
     ``oom`` False; the pool's invariants; delta blocks made; ``cow_write``
     and ``cow_write_delta`` launched.  Prints the bytes per append each
-    write kernel must move.  Then ``cow_write_delta`` against its plain
-    version on a mid-block append's own routing: exact.
+    write kernel must move, and ``{"delta_profile": ...}``: 8 generations
+    of the delta run after the mid-block check traced, launches per
+    generation counted and traced, one ``cow_write_delta_kernel`` record
+    per counted launch.  Then ``cow_write_delta`` against its plain
+    version on a mid-block append's own routing: exact; a dump row dirty
+    on entry zero after; one kernel record a call (traced).
 11. The three kernels no path of the system calls yet, reached through
     the registry at the widths of the models the repository configures,
     with the counters set to 0 just before and read just after:
@@ -98,9 +102,12 @@ Phases (any failed check raises, and the script exits non-zero):
     element within 1.25 times its rounding bound of the plain version in
     f32, a bound that two planted faults must exceed) and
     ``ssd_scan`` (mamba2-130m: 24 heads, P 64, N 128, chunk 64, f32, B = 4
-    x S = 2,048; rtol/atol 2e-4), each against its plain version on the
+    x S = 2,048; rtol/atol 2e-4; a repeat call bit-equal; its two
+    launches' times, traced), each against its plain version on the
     card, with its times and bound; flash's library time is SDPA with
     ``enable_gqa`` (causal, or a boolean causal-and-window mask).
+    ``cow_write_delta``'s and ``ssd_scan``'s lines print their time
+    before their redesign beside this run's.
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``
 and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
@@ -158,6 +165,12 @@ FLASH_BOUND_LIMIT = 1.25
 # The SSD scan at mamba2-130m's widths (d_inner 1536 = 24 heads of 64,
 # state 128, chunk 64), f32: (B, S, H, P, N, chunk).
 SSD_SHAPE = (4, 2048, 24, 64, 128, 64)
+# The redesigned kernels' times before their redesign, printed beside
+# this run's (ms a call at these shapes; PERF.md §6, NVIDIA H100 80GB
+# HBM3 at 700 W).
+EARLIER_MS = {"cow_write_delta": 0.01127, "ssd_scan": 3.070}
+# Phase 10: delta-store generations traced after the mid-block check.
+TRACE_GENS = 8
 
 
 def require(ok: bool, what: str) -> None:
@@ -632,10 +645,20 @@ def delta_store_phase(dev, rate, ys):
         for name, fn in writers.items():
             setattr(store_lib, name, counting(name))
         moved.clear()
+        prof = None
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
             for step in range(steps):
+                if delta and step == DELTA_MID:
+                    # Trace TRACE_GENS generations (mid-block: delta blocks live).
+                    torch.cuda.synchronize()
+                    out["wall_s"] += time.perf_counter() - t
+                    counted = dispatch.launch_counts()
+                    tracer = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                    tracer.start()
+                    prof = tracer
+                    t_trace = time.perf_counter()
                 if logw is not None:
                     store, anc = store_lib.clone_chain(cfg, store, gen, logw)
                     x = x[anc.long()]
@@ -653,9 +676,19 @@ def delta_store_phase(dev, rate, ys):
                         out["mid_delta_blocks"] = int((store.pool.parent >= 0).sum())
                     torch.cuda.synchronize()
                     t = time.perf_counter()
+                if prof is not None and step == DELTA_MID + TRACE_GENS - 1:
+                    torch.cuda.synchronize()
+                    traced_ms = (time.perf_counter() - t_trace) * 1e3
+                    prof.stop()
+                    after = dispatch.launch_counts()
+                    out["trace"] = (prof, {k: after[k] - counted[k] for k in after}, traced_ms)
+                    prof = None
+                    t = time.perf_counter()
             torch.cuda.synchronize()
             out["wall_s"] += time.perf_counter() - t
         finally:
+            if prof is not None:
+                prof.stop()
             for name, fn in writers.items():
                 setattr(store_lib, name, fn)
         name = "cow_write_delta" if delta else "cow_write"
@@ -698,6 +731,20 @@ def delta_store_phase(dev, rate, ys):
           f"{DELTA_MID} and at {steps} items, read_at at 8 positions); bytes per append: "
           f"cow_write {whole['bytes_per_append']:.1f}, cow_write_delta {delta['bytes_per_append']:.1f}",
           flush=True)
+    # Launches per generation of the delta run: the counted ones, and every
+    # device kernel in the traced window; one cow_write_delta_kernel
+    # record per counted launch (the dump row is zeroed in that launch).
+    prof, counted, traced_ms = delta["trace"]
+    summary = profile_summary(prof, traced_ms, TRACE_GENS, "generation", "cow_write_delta_kernel",
+                              counted["cow_write_delta"])
+    print(json.dumps({"delta_profile": {
+        "N": n, "generations": f"{DELTA_MID}-{DELTA_MID + TRACE_GENS - 1}",
+        "counted_launches_per_generation": {k: v / TRACE_GENS for k, v in counted.items() if v},
+        **summary,
+    }}), flush=True)
+    if kernel_events(prof):  # CUPTI delivered records
+        require(summary["records_complete"],
+                f"one cow_write_delta_kernel record per counted launch ({summary})")
 
     # cow_write_delta against its plain version, on the mid-block append's
     # own routing (copy rows keeping their dirty slots, copy rows keeping
@@ -722,9 +769,21 @@ def delta_store_phase(dev, rate, ys):
     plain_ms = device_ms(plain)
     call_ms = time_ms(lambda: cow_write_delta(scratch_k, src, dst, pos, values, keep))
     moved_call = int(write_bytes(data, src, dst, pos, keep))
+    dirty = data.clone()
+    dirty[nb] = 1.0
+    require(not cow_write_delta(dirty, src, dst, pos, values, keep)[nb].any()
+            and torch.equal(dirty[:nb], got[:nb]),
+            "cow_write_delta zeroes a dump row that held data on entry, in its one launch")
+    per_call = traced_per_call(lambda: cow_write_delta(scratch_k, src, dst, pos, values, keep), 10)
+    if per_call:  # CUPTI delivered records
+        require([v["records"] for v in per_call.values()] == [1.0]
+                and "cow_write_delta_kernel" in next(iter(per_call)),
+                f"cow_write_delta: one launch a call, its kernel's ({per_call})")
     print(f"kernel cow_write_delta: exact on an append of {n} rows ({copy_rows} copy rows, "
-          f"{empty_rows} of them reading nothing); {ms:.4f} ms on the device, {call_ms:.4f} ms per "
-          f"call (plain {plain_ms:.4f} ms); {moved_call} bytes", flush=True)
+          f"{empty_rows} of them reading nothing); {ms:.4f} ms on the device "
+          f"({EARLIER_MS['cow_write_delta']} before the redesign), {call_ms:.4f} ms per call "
+          f"(plain {plain_ms:.4f} ms); {moved_call} bytes; per call, traced: {json.dumps(per_call)}",
+          flush=True)
     return {
         "name": "cow_write_delta", "route": "cuda", "source": "src/repro_torch/csrc/cow_write.cu",
         "replaces": "src/repro/kernels/cow_write/kernel.py:76",
@@ -786,6 +845,37 @@ def attention_pairs(s: int, window: int) -> int:
     return int(np.minimum(i + 1, window if window > 0 else s).sum())
 
 
+def registry_inputs(dev):
+    """Phase 11's generator and its draws: flash_attention's (name, (q, k,
+    v), window) cases, then ssd_scan's (x, dt, a, B, C) at SSD_SHAPE."""
+    from repro_torch import random as rnd
+
+    gen = rnd.generator(SEED + 11, dev)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    flash_in = [(name, (randn(b, s, h, d, dtype=bf16), randn(b, s, kvh, d, dtype=bf16),
+                        randn(b, s, kvh, d, dtype=bf16)), w) for name, b, s, h, kvh, d, w in FLASH_CASES]
+    sb, ss, sh, sp, sn, _ = SSD_SHAPE
+    ssd_in = (randn(sb, ss, sh, sp), torch.nn.functional.softplus(randn(sb, ss, sh)),
+              -torch.exp(0.3 * randn(sh)), randn(sb, ss, sn), randn(sb, ss, sn))
+    return gen, flash_in, ssd_in
+
+
+def traced_per_call(fn, calls: int) -> dict:
+    """Each device kernel's (µs, records) per call over ``calls`` calls of
+    ``fn`` under torch.profiler (empty when CUPTI delivers no records)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {k[:72]: {"us": us / calls, "records": count / calls}
+            for k, (us, count) in kernel_events(prof).items()}
+
+
 def registry_phase(dev, rate, logw):
     """Phase 11: resample, flash_attention and ssd_scan through the
     registry at full width, each against its plain version on the card.
@@ -797,18 +887,9 @@ def registry_phase(dev, rate, logw):
     from repro_torch.kernels.resample import resample_systematic_kernel, resample_systematic_ref
     from repro_torch.kernels.ssd_scan import ssd_scan_ref
 
-    gen = rnd.generator(SEED + 11, dev)
+    gen, flash_in, ssd_in = registry_inputs(dev)
     n = logw.shape[0]
-    bf16 = torch.bfloat16
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    flash_in = [(name, (randn(b, s, h, d, dtype=bf16), randn(b, s, kvh, d, dtype=bf16),
-                        randn(b, s, kvh, d, dtype=bf16)), w) for name, b, s, h, kvh, d, w in FLASH_CASES]
     sb, ss, sh, sp, sn, sq = SSD_SHAPE
-    ssd_in = (randn(sb, ss, sh, sp), torch.nn.functional.softplus(randn(sb, ss, sh)),
-              -torch.exp(0.3 * randn(sh)), randn(sb, ss, sn), randn(sb, ss, sn))
 
     # -- the path: each op once through the registry --------------------------
     dispatch.reset_launch_counts()
@@ -931,9 +1012,15 @@ def registry_phase(dev, rate, logw):
         "library_ms": None,
     }
     rows.append(row)
-    print(f"kernel ssd_scan: max |kernel - plain| {err!r} (y up to {yr.abs().max().item():.2f}); "
-          f"{row['ms']:.4f} ms on the device, plain {row['plain_ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {flops} flops, {moved} bytes)", flush=True)
+    y2, hf2 = ssd(*ssd_in, chunk=sq)
+    require(torch.equal(y, y2) and torch.equal(hf, hf2), "ssd_scan: a repeat call is bit-equal")
+    # Its two launches apart, traced (the chunk-parallel kernel, then the pass).
+    per_launch = traced_per_call(lambda: ssd(*ssd_in, chunk=sq), 5)
+    print(f"kernel ssd_scan: max |kernel - plain| {err!r} (y up to {yr.abs().max().item():.2f}), "
+          f"a repeat call bit-equal; {row['ms']:.4f} ms on the device ({EARLIER_MS['ssd_scan']} "
+          f"before the redesign), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}; {flops} flops, {moved} bytes); per launch, traced: "
+          f"{json.dumps(per_launch)}", flush=True)
     return rows
 
 

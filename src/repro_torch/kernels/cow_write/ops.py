@@ -4,12 +4,12 @@
 :func:`cow_write_delta` is ``cow_write_delta_pallas``'s (sub-block delta
 COW: only the ``keep`` slots are copied, the rest are zeroed).  Each has
 its own ``launches`` counter.  CUDA tensors launch ``csrc/cow_write.cu``
-(one kernel per variant); CPU tensors run
+(one template for both variants, one launch a call); CPU tensors run
 :func:`cow_write_ref` / :func:`cow_write_delta_ref`.  Both write into
 ``data`` in place (the TPU kernel's ``input_output_aliases``) and are
 bit-exact on every non-dump row; the dump row is zero after either
-(the whole-block kernel zeroes it in its own launch, the other paths
-with ``zero_()`` after the write).
+(the kernel zeroes it in its own launch, the CPU path with ``zero_()``
+after the write).
 """
 
 from __future__ import annotations
@@ -90,8 +90,10 @@ def cow_write_delta(
     if route(data, src, dst, pos, values, keep) == "cpu":
         cow_write_delta_ref(data, src, dst, pos, values, keep)
     elif n > 0:
+        # The kernel skips masked rows and zeroes the dump row itself.
         _launch(data, src, dst, pos, values, keep)
         cow_write_delta.launches += 1
+        return data
     data[-1].zero_()
     return data
 

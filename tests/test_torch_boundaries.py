@@ -221,6 +221,27 @@ def write_routing(rng, nb, n, bs, item):
     return data, src, dst, pos, values
 
 
+def delta_routing(rng, nb, n, bs, item):
+    """A delta COW write's routing as ``store._write_impl`` builds it: copy
+    rows keeping a random half of their slots, copy rows keeping none
+    (their source on the dump row), in-place rows keeping all, masked rows
+    on the dump row."""
+    data = torch.as_tensor(rng.standard_normal((nb + 1, bs, *item)).astype(np.float32))
+    data[nb] = 0
+    ids = torch.as_tensor(rng.permutation(nb).astype(np.int32))
+    kind = torch.as_tensor(rng.integers(0, 4, n))  # copy / empty copy / in place / masked
+    shared = ids[n : n + 5][torch.as_tensor(rng.integers(0, 5, n))]
+    src = torch.where(kind == 0, shared, ids[:n])
+    src = torch.where((kind == 1) | (kind == 3), nb, src).int()
+    dst = torch.where(kind == 3, nb, ids[:n]).int()
+    keep = torch.as_tensor(rng.random((n, bs)) < 0.5)
+    keep = torch.where((kind == 2)[:, None], True, keep)
+    keep = torch.where((kind == 1)[:, None], False, keep)
+    pos = torch.as_tensor(rng.integers(0, bs, n).astype(np.int32))
+    values = torch.as_tensor(rng.standard_normal((n, *item)).astype(np.float32))
+    return data, src, dst, pos, values, keep
+
+
 def check_flash(gen, shape, dtype, window):
     """flash_attention on the card against its plain version.  f32: atol
     and rtol 2e-5.  bf16: atol and rtol 2e-2, and each element within
@@ -321,6 +342,60 @@ class TestKernelsOnCard:
             args = [x.to(cuda_device) for x in (data, src, dst, pos, values, k)]
             assert torch.equal(cow_write_delta(*args).cpu(), want)
 
+    @pytest.mark.parametrize("bs,item", [(4, (1,)), (8, (1,)), (16, (1,)), (4, (2,))])
+    def test_cow_write_delta_shapes(self, cuda_device, bs, item):
+        """Block/item words 4/1 and 8/1 (16-byte chunks), 16/1 and 8/2
+        (runtime sizes, a thread per word); N off the 256-thread CTA.
+        Exact, and the dump row zero after the call."""
+        data, src, dst, pos, values, keep = delta_routing(np.random.default_rng(bs), 2500, 999, bs, item)
+        want = cow_write_delta(data.clone(), src, dst, pos, values, keep)
+        args = [x.to(cuda_device) for x in (data, src, dst, pos, values, keep)]
+        got = cow_write_delta(*args).cpu()
+        assert torch.equal(got, want) and not got[-1].any()
+
+    @pytest.mark.parametrize("bs", [4, 8])
+    def test_cow_write_delta_chunk_keeps_none(self, cuda_device, bs):
+        """Chunks that keep none of their slots: whole rows on the dump row
+        as their source (which holds data on entry, so a read would show),
+        and, at 8 words, rows whose first chunk keeps nothing while their
+        second keeps some.  Only the written item and the kept slots are
+        non-zero."""
+        data, src, dst, pos, values, keep = delta_routing(np.random.default_rng(20 + bs), 2000, 700, bs, (1,))
+        data[-1] = 3.0
+        if bs == 8:
+            keep[:, :4] = False
+        want = cow_write_delta(data.clone(), src, dst, pos, values, keep)
+        got = cow_write_delta(*[x.to(cuda_device) for x in (data, src, dst, pos, values, keep)]).cpu()
+        assert torch.equal(got[:-1], want[:-1]) and not got[-1].any()
+        rows = (src == 2000) & (dst != 2000)
+        written = torch.zeros_like(keep)
+        written[torch.arange(700), pos.long()] = True
+        assert rows.any() and not got[dst[rows].long()][~written[rows]].any()
+
+    def test_cow_write_delta_chunk_keeps_some(self, cuda_device):
+        """Every chunk keeps exactly one of its four slots (a different one
+        per row): the chunk's other slots are zeroed in registers."""
+        data, src, dst, pos, values, keep = delta_routing(np.random.default_rng(30), 2000, 800, 8, (1,))
+        slot = torch.arange(8)[None, :] % 4 == torch.arange(800)[:, None] % 4
+        keep = torch.where((src == dst)[:, None], keep, slot & (src != 2000)[:, None])
+        want = cow_write_delta(data.clone(), src, dst, pos, values, keep)
+        got = cow_write_delta(*[x.to(cuda_device) for x in (data, src, dst, pos, values, keep)]).cpu()
+        assert torch.equal(got, want)
+
+    def test_cow_write_delta_one_launch_clears_a_dirty_dump_row(self, cuda_device):
+        """A dump row that holds data on entry is zero after the call, in
+        the call's one counted launch, the other rows equal to the plain
+        version's; bool and uint8 keep masks alike."""
+        data, src, dst, pos, values, keep = delta_routing(np.random.default_rng(40), 3000, 900, 8, (1,))
+        data[-1] = 5.0
+        for k in (keep, keep.to(torch.uint8)):
+            want = cow_write_delta(data.clone(), src, dst, pos, values, k)
+            args = [x.to(cuda_device) for x in (data, src, dst, pos, values, k)]
+            before = cow_write_delta.launches
+            got = cow_write_delta(*args).cpu()
+            assert cow_write_delta.launches == before + 1
+            assert torch.equal(got[:-1], want[:-1]) and not got[-1].any()
+
     @pytest.mark.parametrize("n", [1000, 4096, 65536])
     def test_resample(self, cuda_device, n):
         rng = np.random.default_rng(n)
@@ -376,6 +451,36 @@ class TestKernelsOnCard:
         yr, hr = ssd_scan(*[a.cpu() for a in args])
         torch.testing.assert_close(y.cpu(), yr, rtol=2e-4, atol=2e-4)
         torch.testing.assert_close(h.cpu(), hr, rtol=2e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("s,q", [(64, 64), (320, 64), (16, 16), (144, 16)])
+    def test_ssd_scan_chunks(self, cuda_device, dtype, s, q):
+        """One chunk (S = Q) and many, at Q = 64 and Q = 16; P 32 and N 48
+        (multiples of 16, N not a power of two), 5 heads (a partial head
+        group).  y and the final state within 2e-4 of the plain version."""
+        args = ssd_inputs(rnd.generator(s + q, cuda_device), 2, s, 5, 32, 48, dtype, cuda_device)
+        y, h = ssd_scan(*args, chunk=q)
+        yr, hr = ssd_scan(*[a.cpu() for a in args], chunk=q)
+        torch.testing.assert_close(y.cpu(), yr, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(h.cpu(), hr, rtol=2e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_ssd_scan_repeat_bit_equal(self, cuda_device, dtype):
+        """No atomics, chunks summed in order: a repeat call is bit-equal."""
+        args = ssd_inputs(rnd.generator(11, cuda_device), 2, 512, 4, 64, 128, dtype, cuda_device)
+        y1, h1 = ssd_scan(*args)
+        y2, h2 = ssd_scan(*args)
+        assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+    @pytest.mark.parametrize("p,n,chunk", [(24, 32, 64), (32, 40, 64), (32, 32, 24)])
+    def test_ssd_scan_refuses_unaligned_widths(self, cuda_device, p, n, chunk):
+        """P, N or the chunk not a multiple of 16 raises on the card; the
+        plain version is never run in its place."""
+        args = ssd_inputs(rnd.generator(12, cuda_device), 1, 192, 2, p, n, torch.float32, cuda_device)
+        before = ssd_scan.launches
+        with pytest.raises(ValueError, match="multiples of 16"):
+            ssd_scan(*args, chunk=chunk)
+        assert ssd_scan.launches == before
 
     def test_refcount_delta(self, cuda_device):
         rng = np.random.default_rng(1)

@@ -57,6 +57,7 @@ from repro_torch.kernels.refcount_update import (  # noqa: E402
 )
 from repro_torch.kernels.resample import resample_systematic_kernel, systematic_comb  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import card_plan  # noqa: E402
 
 pytest.importorskip("hypothesis", reason="property tests need hypothesis (dev extra)")
 from hypothesis import given, settings, strategies as st  # noqa: E402
@@ -645,6 +646,38 @@ class TestSSDScan:
         )
         np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=5e-2, atol=5e-2)
         np.testing.assert_allclose(hf.numpy(), np.asarray(hr), rtol=5e-2, atol=5e-2)
+
+    def test_card_plan_at_mamba2_widths(self):
+        """The card's launch plan at mamba2-130m's widths (B = 4, S = 2,048,
+        H = 24, P 64, N 128, chunk 64): 896 chunk-parallel CTAs (the kernel
+        it replaced ran 96 in all), the pass one CTA per (b, head) with all
+        of P, within the shared memory a CTA may take, and the scratch the
+        wrapper allocates."""
+        plan = card_plan(4, 2048, 24, 64, 128, 64, torch.float32)
+        assert (plan["chunk_ctas"], plan["pass_ctas"], plan["p_tile"]) == (896, 96, 64)
+        assert (plan["chunk_smem"], plan["pass_smem"]) == (70_656, 207_872)
+        assert plan["cb_floats"] == 4 * 32 * 64 * 64 and plan["sc_floats"] == 4 * 24 * 32 * 64 * 128
+        bf16 = card_plan(4, 2048, 24, 64, 128, 64, torch.bfloat16, p_tile=16)
+        assert bf16["pass_ctas"] == 384 and bf16["pass_smem"] < plan["pass_smem"]
+        assert card_plan(4, 2048, 24, 64, 128, 64, torch.float32, heads=24)["chunk_ctas"] == 4 * 32 * 2
+        assert [card_plan(1, 64, 2, p, 32, 64, torch.float32)["p_tile"] for p in (16, 32, 48, 96)] == [
+            16, 32, 16, 32]
+
+    @pytest.mark.parametrize(
+        "shape,kw",
+        [((64, 24, 32, 64), {}), ((64, 32, 40, 64), {}), ((72, 32, 32, 24), {}),
+         ((64, 48, 32, 64), {"p_tile": 32}), ((64, 32, 32, 64), {"p_tile": 8}),
+         ((64, 32, 32, 64), {"p_tile": 64}),
+         ((128, 64, 128, 128), {}), ((64, 32, 32, 64), {"heads": 0})],
+    )
+    def test_card_plan_refuses(self, shape, kw):
+        """P, N or the chunk not a multiple of 16, a P tile that is not 16,
+        32 or 64 or does not divide P, no heads, or tiles beyond a CTA's
+        shared memory (chunk 128 at N 128 in f32): ValueError, before any
+        launch."""
+        s, p, n, q = shape
+        with pytest.raises(ValueError):
+            card_plan(1, s, 2, p, n, q, torch.float32, **kw)
 
     def test_chunk_invariance(self):
         args = [t(x) for x in ssd_case(9, 1, 64, 2, 8, 16)]
