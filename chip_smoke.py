@@ -95,7 +95,11 @@ Phases (any failed check raises, and the script exits non-zero):
 11. The three kernels no path of the system calls yet, reached through
     the registry at the widths of the models the repository configures,
     with the counters set to 0 just before and read just after:
-    ``resample`` (N = 65,536, phase 2's final LAZY weights; exact),
+    ``resample`` (N = 65,536, phase 2's final LAZY weights, and the
+    planted CDFs of ``kernels/resample/ref.py``; exact, one launch and one
+    traced kernel record a call; the launch floor, a 4-byte ``zero_()``
+    between the same events, printed beside it and in every row of the
+    ``kernels`` line whose bound lies below it),
     ``flash_attention`` (starcoder2-3b: 24 heads over 2 KV heads, d 128,
     bf16, B = 4 x S = 512 and B = 1 x S = 4,096; gemma3-12b: 16 heads
     over 8, d 256, window 1,024, S = 4,096; bf16 atol 2e-2, and each
@@ -106,8 +110,8 @@ Phases (any failed check raises, and the script exits non-zero):
     launches' times, traced), each against its plain version on the
     card, with its times and bound; flash's library time is SDPA with
     ``enable_gqa`` (causal, or a boolean causal-and-window mask).
-    ``cow_write_delta``'s and ``ssd_scan``'s lines print their time
-    before their redesign beside this run's.
+    ``cow_write_delta``'s, ``ssd_scan``'s and ``resample``'s lines print
+    their time before their redesign beside this run's.
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``
 and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
@@ -168,9 +172,34 @@ SSD_SHAPE = (4, 2048, 24, 64, 128, 64)
 # The redesigned kernels' times before their redesign, printed beside
 # this run's (ms a call at these shapes; PERF.md §6, NVIDIA H100 80GB
 # HBM3 at 700 W).
-EARLIER_MS = {"cow_write_delta": 0.01127, "ssd_scan": 3.070}
+EARLIER_MS = {"cow_write_delta": 0.01127, "ssd_scan": 3.070, "resample": 0.00514}
+# csrc/resample.cu: outputs per CTA, the floats of a tile's source range
+# it stages in shared memory (wider ranges search `cum` itself), and the
+# entries either side of a tile's own indices in its first guess.
+RESAMPLE_TILE = 512
+RESAMPLE_STAGE = 4096
+RESAMPLE_SLACK = 244
 # Phase 10: delta-store generations traced after the mid-block check.
 TRACE_GENS = 8
+
+
+def comb_tiles(cum, u) -> dict:
+    """Per tile of RESAMPLE_TILE outputs: the span of its ancestors, and
+    whether resample.cu's first guess holds them (they lie within
+    RESAMPLE_SLACK of the tile's own indices; ``slack_for_all``: the
+    slack that every tile's would need)."""
+    from repro_torch.kernels.clone_chain.ref import comb_positions
+
+    n = cum.shape[0]
+    raw = torch.searchsorted(cum, comb_positions(u.reshape(()), n), side="left")  # before the clip
+    first = torch.arange(0, n, RESAMPLE_TILE, device=cum.device)
+    last = (first + RESAMPLE_TILE - 1).clamp(max=n - 1)
+    spans = raw[last].clamp(max=n - 1) - raw[first] + 1
+    reach = torch.maximum(first - raw[first], raw[last] - last - 1).clamp(min=0)
+    held = reach <= RESAMPLE_SLACK
+    return {"tiles": int(first.numel()), "span_mean": spans.float().mean().item(),
+            "span_max": int(spans.max()), "wider_than_stage": int((spans > RESAMPLE_STAGE).sum()),
+            "guess_holds": int(held.sum()), "slack_for_all": int(reach.max())}
 
 
 def require(ok: bool, what: str) -> None:
@@ -227,6 +256,19 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def require_one_kernel_a_call(per_call: dict, kernel: str, what: str) -> None:
+    """Where CUPTI delivered records (``traced_per_call``), every traced
+    kernel is ``kernel``, at most one record a call.  CUPTI may drop a
+    record but adds none, so a share below one a call is its loss, and
+    the trace's completeness is printed."""
+    if per_call:
+        require(all(kernel in name and v["records"] <= 1.0 for name, v in per_call.items()),
+                f"{what}: one launch a call, its kernel's ({per_call})")
+        records = [v["records"] for v in per_call.values()]
+        print(f"{what}: traced records per call {records} "
+              f"({'complete' if records == [1.0] else 'CUPTI dropped some'})", flush=True)
 
 
 def kernel_events(prof) -> dict:
@@ -775,10 +817,7 @@ def delta_store_phase(dev, rate, ys):
             and torch.equal(dirty[:nb], got[:nb]),
             "cow_write_delta zeroes a dump row that held data on entry, in its one launch")
     per_call = traced_per_call(lambda: cow_write_delta(scratch_k, src, dst, pos, values, keep), 10)
-    if per_call:  # CUPTI delivered records
-        require([v["records"] for v in per_call.values()] == [1.0]
-                and "cow_write_delta_kernel" in next(iter(per_call)),
-                f"cow_write_delta: one launch a call, its kernel's ({per_call})")
+    require_one_kernel_a_call(per_call, "cow_write_delta_kernel", "cow_write_delta")
     print(f"kernel cow_write_delta: exact on an append of {n} rows ({copy_rows} copy rows, "
           f"{empty_rows} of them reading nothing); {ms:.4f} ms on the device "
           f"({EARLIER_MS['cow_write_delta']} before the redesign), {call_ms:.4f} ms per call "
@@ -884,11 +923,15 @@ def registry_phase(dev, rate, logw):
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.clone_chain import fixed_order_cumsum
     from repro_torch.kernels.flash_attention import flash_attention_ref
-    from repro_torch.kernels.resample import resample_systematic_kernel, resample_systematic_ref
+    from repro_torch.kernels.clone_chain.ref import comb_positions
+    from repro_torch.kernels.resample import (
+        PLANTED, planted_cdfs, resample_systematic_kernel, resample_systematic_ref,
+    )
     from repro_torch.kernels.ssd_scan import ssd_scan_ref
 
     gen, flash_in, ssd_in = registry_inputs(dev)
     n = logw.shape[0]
+    floor_buf = torch.zeros(1, dtype=torch.int32, device=dev)  # the launch floor's 4 bytes
     sb, ss, sh, sp, sn, sq = SSD_SHAPE
 
     # -- the path: each op once through the registry --------------------------
@@ -905,7 +948,8 @@ def registry_phase(dev, rate, logw):
         require(launches[op] > 0, f"kernel {op} launched through the registry ({launches[op]})")
 
     rows = []
-    # resample: the comb on phase 2's final weights.
+    # resample: the comb on phase 2's final weights, and on the planted
+    # CDFs at the comb's edges.
     comb = dispatch.get_op("resample")
     w = torch.softmax(logw, 0)
     cum = fixed_order_cumsum(w)
@@ -915,21 +959,36 @@ def registry_phase(dev, rate, logw):
     require(torch.equal(got, want), "resample: kernel equals its plain version")
     sorted_ok = bool((got[1:] >= got[:-1]).all()) and int(got.min()) >= 0 and int(got.max()) < n
     require(sorted_ok, "resample: ancestors sorted and in range")
+    for case, (pc, pu) in planted_cdfs(n, seed=SEED).items():
+        pc, pu = pc.to(dev), pu.to(dev)
+        before = comb.launches
+        require(torch.equal(comb(pc, pu), resample_systematic_ref(pc, pu)) and comb.launches == before + 1,
+                f"resample on the planted CDF {case}: kernel equals its plain version, in one launch")
+    # The design's premise: a tile's ancestors lie near its own indices, in
+    # a range that fits the stage.
+    tiles = comb_tiles(cum, u)
+    traced = traced_per_call(lambda: comb(cum, u), 10)
+    require_one_kernel_a_call(traced, "resample_kernel", "resample")
+    positions = comb_positions(u.reshape(()), n)
     bytes_ms = (8 * n + 4) / rate * 1e3
     ops_ms = n * (math.ceil(math.log2(n)) + 2) / F32_RATE * 1e3
+    floor_ms = device_ms(lambda: floor_buf.zero_())
     row = {
         "name": "resample", "route": "cuda", "source": "src/repro_torch/csrc/resample.cu",
         "replaces": "src/repro/kernels/resample/kernel.py:44", "launches": launches["resample"],
         "max_abs_err": 0.0, "ms": device_ms(lambda: comb(cum, u)),
         "plain_ms": device_ms(lambda: resample_systematic_ref(cum, u)),
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": device_ms(lambda: torch.searchsorted(cum, (torch.arange(n, device=dev) + u) / n)),
-        "call_ms": time_ms(lambda: comb(cum, u)),
+        "library_ms": device_ms(lambda: torch.searchsorted(cum, positions, side="left")),
+        "call_ms": time_ms(lambda: comb(cum, u)), "launch_floor_ms": floor_ms,
     }
     rows.append(row)
-    print(f"kernel resample: exact at N={n} ({int(torch.unique(got).numel())} distinct ancestors); "
-          f"{row['ms']:.4f} ms on the device (plain {row['plain_ms']:.4f}, searchsorted "
-          f"{row['library_ms']:.4f})", flush=True)
+    print(f"kernel resample: exact at N={n} ({int(torch.unique(got).numel())} distinct ancestors) and "
+          f"on the planted CDFs {list(PLANTED)}, one launch each; tiles of {RESAMPLE_TILE} outputs "
+          f"{json.dumps(tiles)}; {row['ms']:.5f} ms on the device "
+          f"({EARLIER_MS['resample']} before the redesign), launch floor {floor_ms:.5f} ms (a 4-byte "
+          f"zero_), plain {row['plain_ms']:.4f}, searchsorted {row['library_ms']:.4f}, bound "
+          f"{row['bound_ms']:.5f}; traced per call {json.dumps(traced)}", flush=True)
 
     # flash_attention: each shape against the plain version: atol 2e-2,
     # and every element within FLASH_BOUND_LIMIT times its rounding bound
@@ -1337,6 +1396,12 @@ def main() -> int:
         **profile_summary(prof, wall * 1e3, prof_t, "generation", "cow_write_kernel", traced),
     }}), flush=True)
 
+    floor_ms = registry_rows[0]["launch_floor_ms"]
+    for row in rows:
+        if row["bound_ms"] < floor_ms:
+            row["launch_floor_ms"] = floor_ms
+    print(f"launch floor {floor_ms:.5f} ms; bounds below it: "
+          f"{[row['name'] for row in rows if 'launch_floor_ms' in row]}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     # The one card this run used.

@@ -44,7 +44,7 @@ SOURCES = (
     "flash_attention.cu",
     "ssd_scan.cu",
 )
-HEADERS = ("refcount_hist.cuh", "comb.cuh", "column_runs.cuh")
+HEADERS = ("refcount_hist.cuh", "comb.cuh", "comb_range.cuh", "column_runs.cuh")
 # No --use_fast_math: clone_chain's comb positions need IEEE division
 # to match the plain path bit for bit.
 NVCC_FLAGS = (

@@ -30,7 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 def systematic_comb(cum: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Ancestors ``[n] int32`` of the comb ``(j + u) / n`` against the
     inclusive CDF ``cum: [n] f32`` (``cum[-1] == 1``); ``u`` holds one
-    float32 uniform."""
+    float32 uniform.  On the card, one launch: a CTA per 512 outputs
+    finds their source range once and searches it in shared memory."""
     n = cum.shape[0]
     check(cum, "cum", torch.float32, (n,))
     if u.dtype != torch.float32 or u.numel() != 1:

@@ -36,7 +36,12 @@ from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
     check_kernel_inputs,
     split_plan,
 )
-from repro_torch.kernels.resample import resample_systematic_kernel, systematic_comb  # noqa: E402
+from repro_torch.kernels.resample import (  # noqa: E402
+    PLANTED,
+    planted_cdfs,
+    resample_systematic_kernel,
+    systematic_comb,
+)
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.serving import crosscheck as cc  # noqa: E402
 from repro_torch.serving.crosscheck import LOGIT_TOL, card_against_cpu, smoke_program  # noqa: E402
@@ -396,15 +401,36 @@ class TestKernelsOnCard:
             assert cow_write_delta.launches == before + 1
             assert torch.equal(got[:-1], want[:-1]) and not got[-1].any()
 
-    @pytest.mark.parametrize("n", [1000, 4096, 65536])
-    def test_resample(self, cuda_device, n):
-        rng = np.random.default_rng(n)
-        w = np.exp(3 * rng.standard_normal(n)).astype(np.float32)
-        cum = torch.as_tensor(np.cumsum(w, dtype=np.float32))
-        cum = cum / cum[-1]
-        u = torch.as_tensor(np.array([rng.random()], np.float32))
+    @pytest.mark.parametrize("n", [1, 255, 1000, 4096, 65536, 65537, 1048576])
+    @pytest.mark.parametrize("case", ["random", *PLANTED])
+    def test_resample(self, cuda_device, case, n):
+        """Bit-equal to the plain version in one launch a call: log-normal
+        weights, and ``planted_cdfs``' edges (one particle holding all the
+        weight, zero-weight runs wider than the kernel's shared stage, a
+        last entry below 1, u = 0 and the largest float32 below 1, ties);
+        n off the kernel's 512-output tile and up to 2^20."""
+        if case == "random":
+            rng = np.random.default_rng(n)
+            w = np.exp(3 * rng.standard_normal(n)).astype(np.float32)
+            cum = torch.as_tensor(np.cumsum(w, dtype=np.float32))
+            cum = cum / cum[-1]
+            u = torch.as_tensor(np.array([rng.random()], np.float32))
+        else:
+            cum, u = planted_cdfs(n, seed=n)[case]
         want = systematic_comb(cum, u)
-        assert torch.equal(systematic_comb(cum.to(cuda_device), u.to(cuda_device)).cpu(), want)
+        before = systematic_comb.launches
+        got = systematic_comb(cum.to(cuda_device), u.to(cuda_device)).cpu()
+        assert systematic_comb.launches == before + 1
+        assert torch.equal(got, want)
+
+    def test_resample_unaligned_cdf(self, cuda_device):
+        """A CDF 4 bytes off 16-byte alignment (a view one entry into its
+        storage) is staged without vector loads, with the same result."""
+        cum, u = planted_cdfs(65537, seed=3)["zero_runs"]
+        padded = torch.cat([torch.zeros(1), cum]).to(cuda_device)
+        assert padded[1:].data_ptr() % 16 == 4
+        got = systematic_comb(padded[1:], u.to(cuda_device)).cpu()
+        assert torch.equal(got, systematic_comb(cum, u))
 
     @pytest.mark.parametrize("d", HEAD_DIMS)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

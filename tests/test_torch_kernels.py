@@ -55,7 +55,12 @@ from repro_torch.kernels.refcount_update import (  # noqa: E402
     refcount_delta,
     refcount_update,
 )
-from repro_torch.kernels.resample import resample_systematic_kernel, systematic_comb  # noqa: E402
+from repro_torch.kernels.resample import (  # noqa: E402
+    PLANTED,
+    planted_cdfs,
+    resample_systematic_kernel,
+    systematic_comb,
+)
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import card_plan  # noqa: E402
 
@@ -535,6 +540,23 @@ class TestResample:
         eq(got, jax_resample_ref(jnp.asarray(cum), jnp.asarray([u])))
         eq(got, resample_systematic_pallas(jnp.asarray(cum), jnp.asarray([u]), interpret=True))
         assert got.dtype == torch.int32
+
+    @pytest.mark.parametrize("n", [256, 2048])
+    @pytest.mark.parametrize("case", PLANTED)
+    def test_planted_cdfs(self, case, n):
+        """The CDFs the card tests hold the kernel to (one particle holding
+        all the weight, zero-weight runs, a last entry below 1, u = 0 and
+        the largest float32 below 1, ties): the plain version against the
+        reference's oracle and its Pallas kernel, bit for bit.  The oracle
+        does not clip to n - 1 (the Pallas kernel does), so it is clipped
+        here."""
+        cum, u = planted_cdfs(n, seed=n)[case]
+        got = systematic_comb(cum, u)
+        jc, ju = jnp.asarray(cum.numpy()), jnp.asarray(u.numpy())
+        eq(got, np.minimum(np.asarray(jax_resample_ref(jc, ju)), n - 1))
+        eq(got, resample_systematic_pallas(jc, ju, interpret=True))
+        if case == "clip":
+            assert int((got == n - 1).sum()) > 1
 
     def test_weight_path_draws_one_uniform(self):
         """Softmax, fixed-order CDF, ``cum / cum[-1]``, one uniform of shape
