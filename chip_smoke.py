@@ -112,9 +112,31 @@ Phases (any failed check raises, and the script exits non-zero):
     ``enable_gqa`` (causal, or a boolean causal-and-window mask).
     ``cow_write_delta``'s, ``ssd_scan``'s and ``resample``'s lines print
     their time before their redesign beside this run's.
+12. SMC decoding through the continuous-batching scheduler, with the
+    counters set to 0 just before the main run and read just after:
+    starcoder2-3b at its published widths (random weights from seed 0, the
+    embedding table scaled by 1/sqrt(d_model), see ``smc_decode_phase``),
+    two requests of 16 particles in one 32-row engine (pages of 16, the
+    automatic pool, growth on), prompts of 500 tokens, 64 steps each,
+    target temperature 0.7, proposal 1.0, ESS threshold 0.5, LAZY_SR token
+    store.  Checks: ``oom`` False; each request resampled; peak KV pages
+    below the dense count; ``paged_attention``, ``clone_chain``,
+    ``cow_write`` and ``cow_gather`` launched.  Then, each bit-exact
+    (tokens, log-weights, log-evidence, ESS, resampling steps) with the
+    main run: each request alone on an engine of the same 32 rows (cuBLAS
+    may pick another GEMM for another row count); a forced preemption at
+    tick 20 and its replay; ``STEP_FAILURE`` then ``OOM`` on the first
+    tick that forks (two rollbacks, invariants clean); a checkpoint at
+    tick 32 restored on a fresh engine; the run with ``kv_delta_cow``
+    (``paged_attention_delta`` launched, counted from 0).  ``cow_write``
+    and ``clone_chain`` equal their plain versions on the inputs of the
+    token store's last calls (int32, items ``()``).  ``python -m
+    repro_torch.launch.serve --smc`` runs.  Prints ``{"smc_decode": ...}``:
+    the median wall per tick, launches per tick, peak against dense
+    pages, growth, and the rollback snapshot's bytes and device time.
 
-Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``
-and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
+Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
+``{"smc_decode": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -345,8 +367,9 @@ def gumbel_sample(logits, gen):
     """One token per row from softmax(logits), by Gumbel-max on the
     generator's uniforms: the same logits and generator state give the
     same tokens."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device).clamp_(min=1e-20)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    from repro_torch import random as rnd
+
+    return torch.argmax(logits + rnd.gumbel(gen, logits.shape), dim=-1)
 
 
 def clone_cache(cache):
@@ -619,6 +642,379 @@ def serve_phases(dev, rate):
     require(toks.shape == (4, 33) and bool(((toks >= 0) & (toks < CONFIG.padded_vocab)).all()),
             f"the serve CLI returns 4 continuations of 33 tokens in the vocabulary ({tuple(toks.shape)})")
     return rows
+
+
+# Phase 12: SMC decoding through the continuous-batching scheduler at
+# starcoder2-3b's full width: two requests of 16 particles in one engine of
+# 32 rows (pages of 16 tokens, the automatic pool, growth on), prompts of
+# 500 tokens, 64 steps each; the forced preemption's tick, the checkpoint's
+# tick, and the request seeds.
+SMC_PARTICLES = 16
+SMC_REQUESTS = 2
+SMC_SLOTS = SMC_PARTICLES * SMC_REQUESTS
+SMC_PROMPT_LEN = 500
+SMC_STEPS = 64
+SMC_TARGET_TEMP, SMC_PROPOSAL_TEMP, SMC_ESS = 0.7, 1.0, 0.5
+SMC_PREEMPT_AT = 20
+SMC_CHECKPOINT_AT = 32
+# The tick whose paged-attention calls (both requests live) are kept and
+# held against the plain version, in whole-page and in delta mode.
+SMC_ATTN_AT = 48
+SMC_OPS = ("paged_attention", "clone_chain", "cow_write", "cow_gather")
+
+
+def smc_decode_phase(dev, rows) -> None:
+    """Phase 12: SMC decoding on the card through the scheduler, with its
+    disturbances (preemption, faults on a forking tick, checkpoint and
+    restore, delta COW) each bit-exact with the undisturbed run, and every
+    kernel the path launches against its plain version on the path's own
+    inputs: the token store's cow_write, clone_chain and final cow_gather,
+    and one tick's paged attention in whole-page and in delta mode.  Adds
+    the SMC path's launches to ``rows``."""
+    import pickle
+
+    from repro_torch import random as rnd
+    from repro_torch.configs.starcoder2_3b import CONFIG
+    from repro_torch.core import store as store_lib
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.clone_chain import clone_chain_kernel, clone_chain_ref, weights_cdf
+    from repro_torch.kernels.cow_gather import cow_gather, cow_gather_ref
+    from repro_torch.kernels.cow_write import cow_write, cow_write_ref
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
+    from repro_torch.kernels.paged_attention.ops import split_plan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.faults import FaultEvent, FaultInjector, FaultKind
+    from repro_torch.serving.scheduler import DecodeRequest, Scheduler, SchedulerEventLog
+    from repro_torch.smc import executor as executor_lib
+
+    cfg = CONFIG
+    lm = LanguageModel(cfg)
+    t = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    # The embedding table is drawn by the model's law (std 1), then scaled by
+    # 1/sqrt(d_model) (std 0.018 at full width).  As drawn, the input token's
+    # logit is ~550 against ~250 for the best other (the tied table's |e|^2
+    # over the final norm): the proposal is one-hot, every particle repeats
+    # its input token, the weights never move and no request resamples
+    # (PERF.md §6).  Scaled, the first logits have std ~1 and an entropy of
+    # ~10.3 nats, and the population diverges.  The phase prints both.
+    drawn = params["embed"].clone()
+    params["embed"].mul_(1.0 / math.sqrt(cfg.d_model))
+    ccfg = kvc.KVCacheConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        block_size=SERVE_BLOCK, max_seqs=SMC_SLOTS,
+        max_blocks_per_seq=-(-(SMC_PROMPT_LEN + SMC_STEPS + 16) // SERVE_BLOCK), dtype=cfg.dtype,
+    )
+    first = ServeEngine(lm, params, ccfg, device=dev)
+    weights = first.params  # matrices cast to bf16 once, shared by every engine
+    del params
+    torch.cuda.synchronize()
+    print(f"smc: weights drawn and cast in {time.perf_counter() - t:.1f} s; {SMC_SLOTS} rows, "
+          f"pool {ccfg.pool_blocks} pages (automatic size) of "
+          f"{first.cache.pool.data[0].numel() * 2} bytes", flush=True)
+    prompts = torch.randint(0, cfg.vocab_size, (SMC_REQUESTS, SMC_PROMPT_LEN),
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 20), device=dev)
+    rids = [f"r{i}" for i in range(SMC_REQUESTS)]
+
+    def request(i):
+        return DecodeRequest(
+            rid=rids[i], prompt=prompts[i], n_particles=SMC_PARTICLES, steps=SMC_STEPS,
+            gen=torch.Generator(device=dev).manual_seed(SEED + 21 + i),
+            target_temp=SMC_TARGET_TEMP, proposal_temp=SMC_PROPOSAL_TEMP, ess_threshold=SMC_ESS,
+        )
+
+    def engine(delta_cow=False):
+        return ServeEngine(lm, weights, kvc.KVCacheConfig(**{**vars(ccfg), "delta_cow": delta_cow}),
+                           device=dev)
+
+    def nbytes(tree) -> int:
+        sizes = []
+        executor_lib.tree_map(
+            lambda x: sizes.append(x.numel() * x.element_size()) if torch.is_tensor(x) else None, tree)
+        return sum(sizes)
+
+    def schedule(reqs, eng=None, **kw):
+        sched = Scheduler(eng or engine(), **kw)
+        for r in reqs:
+            sched.submit(r)
+        return sched
+
+    def same(got, want, what):
+        for f in ("tokens", "log_weights", "log_evidence", "ess_trace", "resampled"):
+            require(torch.equal(getattr(got, f), getattr(want, f)), f"{what}: {f} bit-equal")
+
+    def timed_ticks(sched) -> list:
+        """Drive ``sched`` to the end; the wall seconds of each tick."""
+        walls = []
+        while True:
+            t = time.perf_counter()
+            more = sched.step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if not more:
+                return walls
+
+    # -- the main path: both requests, counters from 0 ----------------------
+    log = SchedulerEventLog()
+    sched = schedule([request(i) for i in range(SMC_REQUESTS)], eng=first, event_log=log)
+    del first
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    walls = timed_ticks(sched)
+    wall_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    main = sched.results
+    ticks = sched.stats.ticks
+    for op in SMC_OPS:
+        require(launches[op] > 0, f"kernel {op} launched on the SMC-decode path ({launches[op]})")
+    dense = SMC_REQUESTS * SMC_PARTICLES * -(-(SMC_PROMPT_LEN + SMC_STEPS) // SERVE_BLOCK)
+    peak = log.peak_blocks()
+    for rid in rids:
+        res = main[rid]
+        require(res.status == "ok" and not bool(res.oom), f"{rid}: ok, oom False")
+        require(bool(res.resampled.any()), f"{rid}: resampled at least once ({res.ess_trace.tolist()})")
+        require(tuple(res.tokens.shape) == (SMC_PARTICLES, SMC_STEPS)
+                and bool(((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()),
+                f"{rid}: tokens in the vocabulary")
+        require(math.isfinite(float(res.log_evidence)) and bool(torch.isfinite(res.ess_trace).all()),
+                f"{rid}: finite log-evidence and ESS")
+    require(peak < dense, f"peak KV pages {peak} below the dense count {dense}")
+    print(f"smc main: {ticks} ticks in {wall_s:.2f} s; per tick median "
+          f"{sorted(walls)[len(walls) // 2] * 1e3:.2f} ms; resamples "
+          f"{[int(main[r].resampled.sum()) for r in rids]}; peak {peak} pages (dense {dense}); "
+          f"grew {sched.executor.stats.grow_events}; launches {json.dumps(launches)}", flush=True)
+
+    # -- the rollback snapshot end to end: the schedule with an empty fault
+    # injector (a snapshot every tick) and without one, alternated --------
+    snapshot_walls = {"with": [], "without": []}
+    for kind in ("with", "without", "without", "with"):
+        sched = schedule([request(i) for i in range(SMC_REQUESTS)],
+                         faults=FaultInjector([]) if kind == "with" else None)
+        ticked = timed_ticks(sched)
+        snapshot_walls[kind].append(sorted(ticked)[len(ticked) // 2] * 1e3)
+        for rid in rids:
+            same(sched.results[rid], main[rid], f"{rid}, {kind} the rollback snapshot")
+    print(f"smc: median wall per tick with a snapshot every tick / without, alternated: "
+          f"{json.dumps(snapshot_walls)} ms", flush=True)
+
+    # -- why the embedding is scaled: the first step's proposal, and the
+    # same run with the table as drawn --------------------------------------
+    def proposal(eng):
+        logits = eng.prefill(prompts[:1], torch.zeros(1, dtype=torch.int32, device=dev))[0]
+        p = torch.softmax(logits / SMC_PROPOSAL_TEMP, dim=-1)
+        return {"top_prob": p.max().item(), "entropy_nats": -torch.xlogy(p, p).sum().item(),
+                "logit_std": logits.std().item()}
+
+    as_drawn = {**weights, "embed": drawn}
+    first_step = {"scaled": proposal(engine()), "as_drawn": proposal(
+        ServeEngine(lm, as_drawn, ccfg, device=dev))}
+    res = schedule([request(i) for i in range(SMC_REQUESTS)],
+                   eng=ServeEngine(lm, as_drawn, ccfg, device=dev)).run()
+    resamples_as_drawn = {rid: int(res[rid].resampled.sum()) for rid in rids}
+    del as_drawn, drawn
+    print(f"smc: the first step's proposal {json.dumps(first_step)}; resamples with the "
+          f"table as drawn {json.dumps(resamples_as_drawn)}", flush=True)
+
+    # -- each request alone, on an engine of the same 32 rows ---------------
+    for i, rid in enumerate(rids):
+        same(schedule([request(i)]).run()[rid], main[rid], f"{rid} alone on {SMC_SLOTS} rows")
+    print(f"smc: each request alone on an engine of {SMC_SLOTS} rows is bit-exact with the "
+          "two-request run", flush=True)
+
+    # -- a forced preemption at tick 20 and its resume; the inputs of the
+    # token store's last cow_write, clone_chain and cow_gather calls kept --
+    captured = {}
+    store_write, store_chain, store_gather = (
+        store_lib.cow_write, store_lib.clone_chain_op, store_lib.cow_gather)
+
+    def capture_write(data, src, dst, pos, values):
+        captured["cow_write"] = (data.clone(), src.clone(), dst.clone(), pos.clone(), values.clone())
+        return store_write(data, src, dst, pos, values)
+
+    def capture_chain(gen, logw, tables, *, num_blocks):
+        # The uniform the chain is about to draw, from a copy of its generator.
+        u = rnd.uniform(rnd.snapshot(gen), ()).to(logw.device)
+        captured["clone_chain"] = (weights_cdf(logw), u, tables.clone(), num_blocks)
+        return store_chain(gen, logw, tables, num_blocks=num_blocks)
+
+    def capture_gather(data, table, out=None):
+        got = store_gather(data, table, out)
+        captured["cow_gather"] = (data.clone(), table.clone(), got.clone())
+        return got
+
+    def preempt_once(s):
+        if s.tick == SMC_PREEMPT_AT and not s.stats.preemptions:
+            s.preempt(rids[-1])
+
+    sched = schedule([request(i) for i in range(SMC_REQUESTS)], on_boundary=preempt_once)
+    store_lib.cow_write, store_lib.clone_chain_op, store_lib.cow_gather = (
+        capture_write, capture_chain, capture_gather)
+    try:
+        res = sched.run()
+    finally:
+        store_lib.cow_write, store_lib.clone_chain_op, store_lib.cow_gather = (
+            store_write, store_chain, store_gather)
+    require(sched.stats.preemptions == 1 and sched.stats.replayed_tokens == SMC_PREEMPT_AT,
+            f"one preemption at tick {SMC_PREEMPT_AT}, {SMC_PREEMPT_AT} tokens replayed")
+    for rid in rids:
+        same(res[rid], main[rid], f"{rid} with a preemption at tick {SMC_PREEMPT_AT}")
+    print(f"smc: preempted {rids[-1]} at tick {SMC_PREEMPT_AT} and resumed: bit-exact", flush=True)
+
+    data, src, dst, pos, values = captured["cow_write"]
+    require(data.dtype == torch.int32 and data.dim() == 2 and values.dim() == 1,
+            f"the token store's pool is int32 with items () ({data.dtype}, {tuple(data.shape)})")
+    got = cow_write(data.clone(), src, dst, pos, values)
+    want = cow_write_ref(data.clone(), src, dst, pos, values)
+    require(torch.equal(got[:-1], want[:-1]) and not got[-1].any(),
+            "cow_write equals its plain version at the token store's shapes")
+    cum, u, tables, nb = captured["clone_chain"]
+    got = clone_chain_kernel(cum, u, tables, nb)
+    want = clone_chain_ref(cum, u, tables, nb)
+    require(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+            "clone_chain equals its plain version at the token store's shapes")
+    data, table, out = captured["cow_gather"]
+    require(data.dtype == torch.int32 and data.dim() == 2,
+            f"the last cow_gather read the token store ({data.dtype}, {tuple(data.shape)})")
+    require(torch.equal(out, cow_gather_ref(data, table)) and torch.equal(cow_gather(data, table), out),
+            "the token store's final cow_gather equals its plain version, and a repeat call")
+    print(f"smc: cow_write (int32 pool {tuple(data.shape)}, {src.shape[0]} rows), clone_chain "
+          f"({tables.shape[0]} x {tables.shape[1]} tables, {nb} blocks) and the final cow_gather "
+          f"({table.shape[0]} blocks) equal their plain versions", flush=True)
+
+    # One tick's paged-attention calls, kept from the next two runs (layer 0
+    # and the last layer), with what the path computed.
+    attn = {"tick": None, "calls": []}
+    attention = engine_lib.paged_attention
+
+    def note_tick(s):
+        attn["tick"] = s.tick
+
+    def capture_attention(q, k_pool, v_pool, tables, lengths, **kw):
+        out = attention(q, k_pool, v_pool, tables, lengths, **kw)
+        if attn["tick"] == SMC_ATTN_AT:
+            kv = torch.stack([k_pool, v_pool], 1).clone()  # [rows, 2, bs, KVH, hd]
+            attn["calls"].append((q.clone(), kv, tables.clone(), lengths.clone(),
+                                  {k: v.clone() for k, v in kw.items()}, out.clone()))
+            del attn["calls"][1:-1]  # the first call and the latest
+        return out
+
+    def check_attention(mode):
+        calls, attn["calls"], attn["tick"] = attn["calls"], [], None
+        require(len(calls) == 2, f"{mode}: tick {SMC_ATTN_AT}'s paged-attention calls kept")
+        errs = []
+        for q, kv, tables, lengths, kw, out in calls:
+            args = (q, kv[:, 0], kv[:, 1], tables, lengths)
+            require(torch.equal(paged_attention(*args, **kw), out),
+                    f"{mode}: a repeat call is bit-equal to the path's")
+            errs.append((out.float() - paged_attention_ref(*args, **kw).float()).abs().max().item())
+        err = max(errs)
+        require(err <= 1e-2, f"{mode}: bf16 kernel within atol 1e-2 of its plain version ({err})")
+        q, kv, tables, lengths, kw, _ = calls[0]
+        pages, splits = split_plan(q.shape[0], kv.shape[3], tables.shape[1], SERVE_BLOCK)
+        return {"max_abs_err": err, "rows": q.shape[0], "pages_per_split": pages, "splits": splits,
+                "slots_read": int(lengths.sum()),
+                **({"delta_pages": int((kw["parent"] >= 0).sum())} if kw else {})}
+
+    # -- STEP_FAILURE then OOM on a tick that forks -------------------------
+    fork = min(int(torch.nonzero(main[rid].resampled)[0]) for rid in rids)
+    inj = FaultInjector([FaultEvent(FaultKind.STEP_FAILURE, tick=fork),
+                         FaultEvent(FaultKind.OOM, tick=fork, repeats=2)])
+    require(fork < SMC_ATTN_AT, f"the fault's tick {fork} lies before tick {SMC_ATTN_AT}")
+    sched = schedule([request(i) for i in range(SMC_REQUESTS)], faults=inj, on_boundary=note_tick)
+    engine_lib.paged_attention = capture_attention
+    try:
+        res = sched.run()
+    finally:
+        engine_lib.paged_attention = attention
+    require(sched.stats.retries == 2 and sched.check_invariants() == [],
+            "two rolled-back attempts, invariants clean")
+    for rid in rids:
+        require(not bool(res[rid].oom), f"{rid}: the rollback cleared the forced oom")
+        same(res[rid], main[rid], f"{rid} with STEP_FAILURE and OOM at tick {fork}")
+    print(f"smc: STEP_FAILURE then OOM at tick {fork} (a fork) rolled back twice: bit-exact", flush=True)
+    attention_check = {"paged_attention": check_attention("paged_attention")}
+
+    # -- checkpoint at tick 32, restore on a fresh engine; the rollback
+    # snapshot's cost on that tick's state (a scheduler takes it on every
+    # tick when it has a fault injector, on none without one) -------------
+    saved = {}
+
+    class Kill(Exception):
+        pass
+
+    def checkpoint_at(s):
+        if s.tick == SMC_CHECKPOINT_AT and not saved:
+            snap = s._snapshot()
+            saved["bytes"] = nbytes([snap["cache"]] + [r[6] for r in snap["reqs"]])
+            del snap
+            saved["snapshot_ms"] = device_ms(s._snapshot, reps=10)
+            saved["state"] = pickle.loads(pickle.dumps(s.checkpoint()))
+            raise Kill
+
+    sched = schedule([request(i) for i in range(SMC_REQUESTS)], on_boundary=checkpoint_at)
+    try:
+        sched.run()
+    except Kill:
+        pass
+    require("state" in saved, f"a checkpoint at tick {SMC_CHECKPOINT_AT}")
+    res = Scheduler.restore(engine(), saved.pop("state"), watchdog=True).run()
+    for rid in rids:
+        same(res[rid], main[rid], f"{rid} restored from the checkpoint at tick {SMC_CHECKPOINT_AT}")
+    print(f"smc: checkpoint at tick {SMC_CHECKPOINT_AT}, restore on a fresh engine: bit-exact; "
+          f"the rollback snapshot, taken on every tick under a fault injector, copies "
+          f"{saved['bytes']} bytes in {saved['snapshot_ms']:.4f} ms on the device", flush=True)
+
+    # -- delta COW: the same run, bit-identical -----------------------------
+    dispatch.reset_launch_counts()
+    engine_lib.paged_attention = capture_attention
+    try:
+        res = schedule([request(i) for i in range(SMC_REQUESTS)], eng=engine(delta_cow=True),
+                       on_boundary=note_tick).run()
+    finally:
+        engine_lib.paged_attention = attention
+    torch.cuda.synchronize()
+    delta_launches = dispatch.launch_counts()
+    attention_check["paged_attention_delta"] = check_attention("paged_attention_delta")
+    require(delta_launches["paged_attention_delta"] > 0,
+            f"kernel paged_attention_delta launched ({delta_launches['paged_attention_delta']})")
+    for rid in rids:
+        same(res[rid], main[rid], f"{rid} with kv_delta_cow=True")
+    print(f"smc: kv_delta_cow=True bit-identical; launches {json.dumps(delta_launches)}", flush=True)
+    print(f"smc: tick {SMC_ATTN_AT}'s paged attention (layers 0 and {cfg.n_layers - 1}) against the "
+          f"plain version, limit 1e-2: {json.dumps(attention_check)}", flush=True)
+
+    # -- the entry points on the card -----------------------------------------
+    res = serve_cli.main(["--smc", "--steps", "12"])
+    require(not bool(res.oom) and tuple(res.tokens.shape) == (16, 12), "serve --smc on the card")
+
+    per_tick = {op: launches[op] / ticks for op in SMC_OPS}
+    per_tick["paged_attention_delta"] = delta_launches["paged_attention_delta"] / ticks
+    counts = {**{op: launches[op] for op in SMC_OPS},
+              "paged_attention_delta": delta_launches["paged_attention_delta"]}
+    for row in rows:
+        if row["name"] in counts:
+            row["smc_decode_launches"] = counts[row["name"]]
+    print(json.dumps({"smc_decode": {
+        "model": "starcoder2-3b", "requests": SMC_REQUESTS, "particles": SMC_PARTICLES,
+        "rows": SMC_SLOTS, "prompt_len": SMC_PROMPT_LEN, "steps": SMC_STEPS,
+        "ticks": ticks, "wall_ms_per_tick_median": sorted(walls)[len(walls) // 2] * 1e3,
+        "wall_ms_per_tick_min": min(walls) * 1e3, "wall_s": wall_s,
+        "launches_per_tick": per_tick, "launches": counts,
+        "resamples": {rid: int(main[rid].resampled.sum()) for rid in rids},
+        "resamples_embedding_as_drawn": resamples_as_drawn, "first_step_proposal": first_step,
+        "peak_pages": peak, "dense_pages": dense,
+        "grow_events": sum(1 for e in log.events if e[0] == "grow"),
+        "snapshot_bytes_per_tick": saved["bytes"], "snapshot_device_ms_per_tick": saved["snapshot_ms"],
+        "snapshot_taken": "on every tick under a fault injector, on none without one",
+        "wall_ms_per_tick_median_with_and_without_snapshot": snapshot_walls,
+        "paged_attention_against_plain": attention_check,
+        "fork_tick_faulted": fork,
+    }}), flush=True)
 
 
 def write_bytes(data, src, dst, pos, keep=None) -> torch.Tensor:
@@ -1374,6 +1770,11 @@ def main() -> int:
 
     # -- 6-9. serving starcoder2-3b at full width -------------------------
     rows += serve_phases(dev, rate)
+    torch.cuda.empty_cache()
+
+    # -- 12. SMC decoding through the scheduler at full width --------------
+    smc_decode_phase(dev, rows)
+    torch.cuda.empty_cache()
     rows.insert(1, delta_row)
     rows[5:5] = registry_rows[:1]
     rows += registry_rows[1:]

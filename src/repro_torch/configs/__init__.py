@@ -21,7 +21,7 @@ def _module(arch: str):
     if name not in ARCHS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet; the port knows "
-            f"{tuple(ARCHS)} (other families: ROADMAP.md queue 1, item 8)"
+            f"{tuple(ARCHS)} (other families: ROADMAP.md queue 1, item 6)"
         )
     return ARCHS[name]
 

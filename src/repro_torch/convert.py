@@ -31,6 +31,7 @@ from repro_torch.models.model import LanguageModel
 from repro_torch.serving.kv_cache import PagedKVCache
 
 __all__ = [
+    "to_numpy",
     "pool_from_numpy",
     "pool_to_numpy",
     "store_from_numpy",
@@ -55,6 +56,12 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:  # numpy has no bfloat16: keep the f32 value
         t = t.float()
     return t.numpy()
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor as a contiguous numpy array of its own (bfloat16 as its
+    float32 value)."""
+    return np.array(_numpy(t), order="C")
 
 
 def pool_from_numpy(pool: Any, device: torch.device | str) -> BlockPool:

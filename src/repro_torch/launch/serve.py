@@ -3,9 +3,9 @@
 Runs the COW-paged serving engine with batched requests: the reduced
 (smoke) config by default, the full config with ``--full``.  Weights are
 random, drawn from a seeded ``torch.Generator`` by the reference's law.
-Runs on the card by default; ``--device cpu`` runs the plain PyTorch
-path on the host.  ``--smc`` (population-based decoding) is not ported
-yet.
+``--smc`` switches to population-based decoding (N particles,
+zero-copy resampling forks) through ``SMCDecoder``.  Runs on the card by
+default; ``--device cpu`` runs the plain PyTorch path on the host.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from typing import Optional, Sequence
 def main(argv: Optional[Sequence[str]] = None):
     """Serve the batch; prints the timing and the first greedy tokens, and
     returns the continuations (``[batch, steps + 1]`` token ids, on the
-    host)."""
+    host).  With ``--smc``, decodes one population and returns its
+    ``SMCDecodeResult``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="starcoder2_3b")
     ap.add_argument("--full", action="store_true")
@@ -39,11 +40,6 @@ def main(argv: Optional[Sequence[str]] = None):
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.kv_cache import KVCacheConfig
 
-    if args.smc:
-        raise NotImplementedError(
-            "--smc needs SMCDecoder, which the next slice of the port brings "
-            "(ROADMAP.md queue 1, item 1)"
-        )
     dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else smoke_config(args.arch)
     gen = torch.Generator(device=dev)
@@ -51,6 +47,24 @@ def main(argv: Optional[Sequence[str]] = None):
     lm = LanguageModel(cfg)
     params = lm.init(gen, device=dev)
     max_len = args.prompt_len + args.steps + 16
+
+    if args.smc:
+        from repro_torch.serving.smc_decode import SMCDecoder
+
+        dec = SMCDecoder(lm, params, n_particles=args.particles, max_len=max_len, device=dev)
+        del params
+        prompt = torch.randint(0, cfg.vocab_size, (args.prompt_len,), generator=gen, device=dev)
+        t0 = time.time()
+        res = dec.run(gen, prompt, steps=args.steps)
+        dt = time.time() - t0
+        if bool(res.oom):
+            raise RuntimeError("a pool ran out of blocks: decoded tokens are not trustworthy")
+        dense = dec.dense_equivalent_blocks(args.steps, args.prompt_len)
+        peak = int(res.used_blocks_trace.max())
+        print(f"SMC decode: {args.particles} particles x {args.steps} tokens "
+              f"in {dt:.1f}s; {int(res.resampled.sum())} zero-copy forks; "
+              f"peak {peak} KV blocks vs {dense} dense ({dense / peak:.2f}x)")
+        return res
 
     # Independent prompts need a page each per block of context: size the
     # pool at the cap, not at the forked-population bound (which would

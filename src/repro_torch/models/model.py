@@ -12,7 +12,7 @@ the reference's::
     blocks/ln2/scale [L, d]            blocks/mlp/{w_gate?,w_up,w_down}
 
 The other families raise until their queue item (ROADMAP.md queue 1,
-item 8).  The training forward and the dense-cache decode path are not
+item 6).  The training forward and the dense-cache decode path are not
 ported; serving runs through :mod:`repro_torch.serving.engine`.
 """
 
@@ -47,7 +47,7 @@ class LanguageModel:
         if self.cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"model family {self.cfg.family!r} is not ported yet (ROADMAP.md "
-                f"queue 1, item 8); the port builds {PORTED_FAMILIES}"
+                f"queue 1, item 6); the port builds {PORTED_FAMILIES}"
             )
 
     def init(

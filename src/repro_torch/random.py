@@ -1,6 +1,7 @@
 """The port's one source of randomness.
 
-Every draw in the port goes through :func:`uniform` or :func:`normal`.
+Every draw in the port goes through :func:`uniform` or :func:`normal`
+(:func:`gumbel` transforms :func:`uniform`'s draws).
 ``gen`` is a ``torch.Generator`` (on the device the draws should land
 on), or any object with the same two methods — ``uniform(shape)`` and
 ``normal(shape)`` returning float32 tensors — such as :class:`Replay`,
@@ -19,7 +20,16 @@ from typing import Any, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["generator", "uniform", "normal", "Replay", "snapshot"]
+__all__ = [
+    "generator",
+    "uniform",
+    "normal",
+    "gumbel",
+    "Replay",
+    "snapshot",
+    "state",
+    "from_state",
+]
 
 
 def generator(seed: int, device: torch.device | str) -> torch.Generator:
@@ -45,6 +55,17 @@ def normal(gen: Any, shape: Sequence[int]) -> torch.Tensor:
             tuple(shape), generator=gen, device=gen.device, dtype=torch.float32
         )
     return gen.normal(tuple(shape))
+
+
+def gumbel(gen: Any, shape: Sequence[int]) -> torch.Tensor:
+    """Float32 standard Gumbel noise of ``shape``: ``-log(-log(u))`` on
+    :func:`uniform`'s draws clamped below at float32's ``tiny``.  This is
+    the noise ``jax.random.categorical`` adds to the logits
+    (``jax._src.random._gumbel``, mode "low", whose uniforms are drawn on
+    ``[tiny, 1)``), so a :class:`Replay` of those uniforms gives its
+    samples."""
+    u = uniform(gen, shape).clamp(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 class Replay:
@@ -98,3 +119,22 @@ def snapshot(gen: Any) -> Any:
         copy.set_state(gen.get_state())
         return copy
     return gen.clone()
+
+
+def state(gen: Any) -> Any:
+    """A picklable record of ``gen``'s position (for checkpoints): a
+    generator's device and ``get_state()`` bytes, or a copy of a replay."""
+    if isinstance(gen, torch.Generator):
+        return ("generator", str(gen.device), gen.get_state().numpy().copy())
+    return ("replay", gen.clone())
+
+
+def from_state(record: Any) -> Any:
+    """The generator (or replay) :func:`state` recorded, at its position."""
+    kind, *rest = record
+    if kind == "generator":
+        device, bits = rest
+        gen = torch.Generator(device=torch.device(device))
+        gen.set_state(torch.as_tensor(bits, dtype=torch.uint8))
+        return gen
+    return rest[0].clone()

@@ -34,7 +34,7 @@ from repro_torch.serving.kv_cache import KVCacheConfig, PagedKVCache
 SUPPORTED_FAMILIES = ("dense",)
 # Families the reference serves from the paged cache, and where their port
 # is queued (ROADMAP.md queue 1).
-UNPORTED_FAMILIES = {"moe": "item 8 (models/moe.py)", "audio": "item 8 (the audio configs)"}
+UNPORTED_FAMILIES = {"moe": "item 6 (models/moe.py)", "audio": "item 6 (the audio configs)"}
 
 
 def cast_matrices(params: Params, dtype: torch.dtype, device: torch.device) -> Params:

@@ -176,32 +176,44 @@ class PopulationExecutor:
         policy: GrowthPolicy,
         need_per_step: int = 0,
         pool: Optional[PoolView] = None,
+        boundary: Optional[Callable[[Any, range], Any]] = None,
+        after: Optional[Callable[[Any, range], None]] = None,
     ) -> Tuple[Any, List[Any], int]:
         """Drive ``chunk_fn(carry, ts) -> (carry, out)`` over ``n_steps``
         generations; ``ts`` is a ``range`` of generation indices.
 
-        Without ``policy.grow`` one chunk runs every generation with no
-        host check (the reference's single traced scan).  With it, the
-        chunked lifecycle loop runs: watermark growth so the chunk's
+        Without ``policy.grow`` and without a ``boundary`` hook, one chunk
+        runs every generation with no host check (the reference's single
+        traced scan).  Otherwise the chunked host loop runs: the optional
+        ``boundary`` hook (the serving scheduler's admission and growth
+        of several pools), watermark growth so the chunk's
         ``len(ts) * need_per_step`` allocations cannot fail, the chunk,
         and on a stuck ``oom`` flag the rollback: the chunk's outputs are
         dropped, the pre-chunk snapshot grows, and the chunk re-runs with
-        the same draws.
+        the same draws.  The optional ``after`` hook runs once per
+        committed chunk, never for a rolled-back one.
 
         Returns ``(carry, outs, grew)``.
         """
-        if not policy.grow:
-            carry, out = chunk_fn(carry, range(n_steps))
+        if not policy.grow and boundary is None:
+            ts = range(n_steps)
+            carry, out = chunk_fn(carry, ts)
+            if after is not None:
+                after(carry, ts)
             return carry, [out], 0
         start_grew = self.stats.grow_events
         chunk = max(1, policy.chunk)
-        can_retry = policy.retry and pool is not None and pool.oom is not None
+        can_retry = (
+            policy.grow and policy.retry and pool is not None and pool.oom is not None
+        )
         outs: List[Any] = []
         t = 0
         while t < n_steps:
             ts = range(t, min(t + chunk, n_steps))
             g = len(ts)
-            if pool is not None:
+            if boundary is not None:
+                carry = boundary(carry, ts)
+            if policy.grow and pool is not None:
                 carry = self.ensure(pool, carry, g * need_per_step, policy.factor)
             # The chunk writes the store in place: keep a private copy to
             # roll back to.
@@ -222,4 +234,6 @@ class PopulationExecutor:
                     continue  # retry the same chunk from the clean checkpoint
             carry, t = new_carry, t + g
             outs.append(out)
+            if after is not None:
+                after(carry, ts)
         return carry, outs, self.stats.grow_events - start_grew

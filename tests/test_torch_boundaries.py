@@ -48,7 +48,10 @@ from repro_torch.serving.crosscheck import LOGIT_TOL, card_against_cpu, smoke_pr
 from repro_torch.smc.filters import FilterConfig, ParticleFilter, SSMDef  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    *sorted((ROOT / "examples").glob("torch_*.py")),
+]
 
 
 def imported_modules(path: Path):
@@ -69,6 +72,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"pool.py", "store.py", "filters.py", "ops.py", "chip_smoke.py"} <= names
+    assert {"faults.py", "smc_decode.py", "scheduler.py", "torch_smc_decode.py"} <= names
 
 
 def lgssm() -> SSMDef:

@@ -56,7 +56,7 @@ def test_configs_match_the_reference():
     assert CONFIG.scaled(n_layers=2).n_layers == 2
     with pytest.raises(NotImplementedError, match="queue 1"):
         configs.get_config("qwen25_32b")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         LanguageModel(CONFIG.scaled(family="moe"))
 
 
