@@ -134,9 +134,34 @@ Phases (any failed check raises, and the script exits non-zero):
     repro_torch.launch.serve --smc`` runs.  Prints ``{"smc_decode": ...}``:
     the median wall per tick, launches per tick, peak against dense
     pages, growth, and the rollback snapshot's bytes and device time.
+13. An SMC fleet through the replica router, on phase 12's weights and
+    cache config: ``traces.staggered(4, 8)`` of phase 12's requests (16
+    particles, prompts of 500 tokens, 64 steps), lowered on the card by
+    ``traces.to_decode_requests``, through fleet A (``make_replicas``, 2
+    replicas on the one card, ``least_loaded``, driven through
+    ``Router.stream()`` with the counters set to 0 just before and read
+    just after) and fleet B (1 replica), every scheduler with its own
+    ``SchedulerEventLog``.  Checks: every request's tokens, log-weights,
+    log-evidence, ESS and resampling steps bit-equal between A and B (both
+    engines of 32 rows); A places on both replicas, B queues (its
+    ``queue_p99`` in rounds above 0), a request resamples; the tokens
+    rebuilt from A's stream of ``TokenEvent`` records equal its results; each
+    scheduler's log replays through ``sim.simulate`` with
+    ``CostModel.from_event_log`` decision-exact, with equal peak pages and
+    ``SchedulerStats``, its simulated time within [0.75, 1.25] of the
+    recorded wall; A's router log equals ``simulate_router``'s over the
+    union of its replicas' recorded traces; replica 1's first
+    paged-attention call of its tick 48 (layer 0, both of its requests
+    live) within 1e-2 of the plain version, a repeat call bit-equal;
+    ``paged_attention``, ``clone_chain``, ``cow_write`` and ``cow_gather``
+    launched.  Prints ``{"fleet": ...}``: placements, rounds, latency in
+    rounds, utilization, each replica's peak pages and simulated/recorded
+    time, resamples, the median tick wall beside
+    ``CostModel.from_roofline``'s step time; the launches go into the
+    ``kernels`` rows as ``fleet_launches``.
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
-``{"smc_decode": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
+``{"smc_decode": ...}``, ``{"fleet": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -663,14 +688,15 @@ SMC_ATTN_AT = 48
 SMC_OPS = ("paged_attention", "clone_chain", "cow_write", "cow_gather")
 
 
-def smc_decode_phase(dev, rows) -> None:
+def smc_decode_phase(dev, rows):
     """Phase 12: SMC decoding on the card through the scheduler, with its
     disturbances (preemption, faults on a forking tick, checkpoint and
     restore, delta COW) each bit-exact with the undisturbed run, and every
     kernel the path launches against its plain version on the path's own
     inputs: the token store's cow_write, clone_chain and final cow_gather,
     and one tick's paged attention in whole-page and in delta mode.  Adds
-    the SMC path's launches to ``rows``."""
+    the SMC path's launches to ``rows``; returns the model, its cast
+    weights and the cache config, which phase 13 reuses."""
     import pickle
 
     from repro_torch import random as rnd
@@ -1014,6 +1040,189 @@ def smc_decode_phase(dev, rows) -> None:
         "wall_ms_per_tick_median_with_and_without_snapshot": snapshot_walls,
         "paged_attention_against_plain": attention_check,
         "fork_tick_faulted": fork,
+    }}), flush=True)
+    return lm, weights, ccfg
+
+
+# Phase 13: an SMC fleet.  The trace's requests (phase 12's sizes) arrive
+# FLEET_INTERVAL ticks apart; replica 1's first paged-attention call (layer
+# 0) of its tick FLEET_ATTN_AT, both of its requests live, is kept.
+FLEET_REQUESTS = 4
+FLEET_INTERVAL = 8
+FLEET_ATTN_AT = 48
+
+
+def fleet_phase(dev, rows, lm, weights, ccfg) -> None:
+    """Phase 13: an SMC fleet on the card.  A trace of FLEET_REQUESTS
+    requests through a 2-replica fleet (fleet A, driven through
+    ``Router.stream()``, the counters set to 0 just before and read just
+    after) and a 1-replica fleet (fleet B) of the same ``max_seqs``, each
+    replica a ``Scheduler`` over its own ``ServeEngine`` on phase 12's
+    weights.  Checks: results bit-equal between the fleets; A places on
+    both replicas, B queues; the stream rebuilds A's tokens; every
+    scheduler's log replays decision-exact through the simulator, its time
+    within +/-25%; A's router log from ``simulate_router``; one tick's
+    paged attention on replica 1 against its plain version.  Adds the
+    fleet's launches to ``rows``."""
+    from repro_torch.configs.starcoder2_3b import CONFIG
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving import traces
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.router import Router, RouterEventLog, make_replicas
+    from repro_torch.serving.scheduler import Scheduler, SchedulerEventLog, stream_tokens
+    from repro_torch.serving.sim import CostModel, first_divergence, simulate, simulate_router
+
+    trace = traces.staggered(FLEET_REQUESTS, FLEET_INTERVAL, n_particles=SMC_PARTICLES,
+                             steps=SMC_STEPS, plen=SMC_PROMPT_LEN, seed=SEED)
+    reqs = traces.to_decode_requests(trace, CONFIG.vocab_size, target_temp=SMC_TARGET_TEMP,
+                                     device=dev)
+    require(all((r.proposal_temp, r.ess_threshold) == (SMC_PROPOSAL_TEMP, SMC_ESS) for r in reqs),
+            "the fleet's requests decode at phase 12's temperatures and ESS threshold")
+    rids = [r.rid for r in reqs]
+    # Replica 1's first paged-attention call of its tick FLEET_ATTN_AT.
+    attn = {"on": False, "call": None, "live": None}
+    attention = engine_lib.paged_attention
+
+    def capture_attention(q, k_pool, v_pool, tables, lengths, **kw):
+        out = attention(q, k_pool, v_pool, tables, lengths, **kw)
+        if attn["on"] and attn["call"] is None:
+            attn["call"] = (q.clone(), k_pool.clone(), v_pool.clone(), tables.clone(),
+                            lengths.clone(), {k: v.clone() for k, v in kw.items()}, out.clone())
+        return out
+
+    def fleet(n, capture=False):
+        logs = []
+
+        def build(i, d):
+            log = SchedulerEventLog()
+            logs.append(log)
+            eng = ServeEngine(lm, weights, ccfg, device=d)
+            sched = Scheduler(eng, event_log=log)
+            if capture and i == 1:
+                decode = eng.decode
+
+                def noted_decode(*args, **kw):
+                    attn["on"] = sched.tick == FLEET_ATTN_AT
+                    if attn["on"]:
+                        attn["live"] = [s.req.rid for s in sched._active]
+                    try:
+                        return decode(*args, **kw)
+                    finally:
+                        attn["on"] = False
+
+                eng.decode = noted_decode
+            return sched
+
+        scheds, devs = make_replicas(build, n=n, devices=[dev])
+        router = Router(scheds, placement="least_loaded", event_log=RouterEventLog(), devices=devs)
+        for r in reqs:
+            router.submit(r)
+        return router, logs
+
+    # -- the main path: fleet A through Router.stream(), counters from 0 ---
+    a, a_logs = fleet(2, capture=True)
+    torch.cuda.synchronize()
+    engine_lib.paged_attention = capture_attention
+    dispatch.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        events = list(a.stream())
+        torch.cuda.synchronize()
+        a_wall = time.perf_counter() - t0
+    finally:
+        engine_lib.paged_attention = attention
+    launches = dispatch.launch_counts()
+    for op in SMC_OPS:
+        require(launches[op] > 0, f"kernel {op} launched on the fleet path ({launches[op]})")
+    res_a = a.results
+    placements = {e[1]: e[3] for e in a.event_log.events if e[0] == "place"}
+    require(sorted(res_a) == sorted(rids), f"fleet A served every request ({sorted(res_a)})")
+    require(set(placements.values()) == {0, 1}, f"fleet A placed on both replicas ({placements})")
+
+    # -- fleet B: one replica of the same max_seqs ---------------------------
+    b, b_logs = fleet(1)
+    t0 = time.perf_counter()
+    res_b = b.run()
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    lat_a, lat_b = a.event_log.latency_rounds(), b.event_log.latency_rounds()
+    require(lat_b["queue_p99"] > 0, f"fleet B queued a request ({lat_b})")
+    for rid in rids:
+        ra, rb = res_a[rid], res_b[rid]
+        require(ra.status == rb.status == "ok" and not bool(ra.oom), f"{rid}: ok, oom False")
+        for f in ("tokens", "log_weights", "log_evidence", "ess_trace", "resampled"):
+            require(torch.equal(getattr(ra, f), getattr(rb, f)),
+                    f"{rid}: {f} bit-equal between 2 replicas and 1")
+    resamples = {rid: int(res_a[rid].resampled.sum()) for rid in rids}
+    require(sum(resamples.values()) > 0, f"a request resampled ({resamples})")
+
+    # -- the stream rebuilds fleet A's tokens -----------------------------
+    for r in reqs:
+        evs = [ev for ev in events if ev.rid == r.rid]
+        require(bool(evs) and evs[-1].final and evs[-1].status == "ok",
+                f"{r.rid}: the stream ends with its final marker")
+        rebuilt = stream_tokens(evs, n=r.n_particles, steps=r.steps)
+        require(np.array_equal(rebuilt, res_a[r.rid].tokens.cpu().numpy()),
+                f"{r.rid}: tokens rebuilt from the stream equal its result")
+
+    # -- every scheduler's log replays through the simulator ---------------
+    replays = {}
+    for label, fleet_, logs in (("A", a, a_logs), ("B", b, b_logs)):
+        for i, log in enumerate(logs):
+            sched = fleet_.replicas[i].scheduler
+            res = simulate(log.to_trace(f"{label}{i}"), ccfg, CostModel.from_event_log(log))
+            div = first_divergence(log.decisions, res.decisions)
+            require(div is None, f"fleet {label} replica {i}: decision-exact replay ({div})")
+            require(res.peak_blocks == log.peak_blocks(),
+                    f"fleet {label} replica {i}: peak pages {res.peak_blocks} == {log.peak_blocks()}")
+            require(res.stats.as_dict() == sched.stats.as_dict(),
+                    f"fleet {label} replica {i}: SchedulerStats equal")
+            ratio = res.sim_time_s / log.recorded_wall_s()
+            require(0.75 <= ratio <= 1.25,
+                    f"fleet {label} replica {i}: simulated / recorded time {ratio} in [0.75, 1.25]")
+            replays[f"{label}{i}"] = {"sim_over_recorded": ratio, "peak_pages": log.peak_blocks(),
+                                      "ticks": sched.stats.ticks,
+                                      "step_ms_median": float(np.median(log.step_wall_s)) * 1e3,
+                                      "recorded_wall_s": log.recorded_wall_s()}
+    recorded = {r.rid: r for log in a_logs for r in log.to_trace().requests}
+    union = traces.Trace(name="fleet", requests=tuple(recorded[rid] for rid in rids))
+    sim_a = simulate_router(union, ccfg, CostModel.from_event_log(a_logs[0]), n_replicas=2,
+                            placement="least_loaded")
+    require(sim_a.event_log.events == a.event_log.events,
+            "fleet A's router log equals simulate_router's over its replicas' recorded traces")
+
+    # -- replica 1's paged attention at tick FLEET_ATTN_AT -----------------
+    require(attn["call"] is not None and len(attn["live"] or []) == 2,
+            f"replica 1's tick {FLEET_ATTN_AT}: a paged-attention call kept, two requests live "
+            f"({attn['live']})")
+    q, k_pool, v_pool, tables, lengths, kw, out = attn.pop("call")
+    args = (q, k_pool, v_pool, tables, lengths)
+    require(torch.equal(paged_attention(*args, **kw), out), "fleet: a repeat call is bit-equal")
+    attn_err = (out.float() - paged_attention_ref(*args, **kw).float()).abs().max().item()
+    require(attn_err <= 1e-2, f"fleet: bf16 kernel within atol 1e-2 of its plain version ({attn_err})")
+    del q, k_pool, v_pool, tables, lengths, kw, out, args
+
+    steps_a = [w for log in a_logs for w in log.step_wall_s]
+    tick_ms = float(np.median(steps_a)) * 1e3
+    roof_ms = CostModel.from_roofline(CONFIG, ccfg, plen=SMC_PROMPT_LEN).step_s * 1e3
+    for row in rows:
+        if row["name"] in SMC_OPS:
+            row["fleet_launches"] = launches[row["name"]]
+    print(json.dumps({"fleet": {
+        "model": "starcoder2-3b", "trace": trace.name, "requests": len(rids),
+        "particles": SMC_PARTICLES, "steps": SMC_STEPS, "prompt_len": SMC_PROMPT_LEN,
+        "rows_per_replica": ccfg.max_seqs, "pool_pages_per_replica": ccfg.pool_blocks,
+        "placement": a.placement_name, "placements": placements,
+        "rounds": {"A": a.round, "B": b.round}, "wall_s": {"A": a_wall, "B": b_wall},
+        "latency_rounds": {"A": lat_a, "B": lat_b},
+        "utilization": {"A": a.utilization(), "B": b.utilization()},
+        "replicas": replays, "resamples": resamples, "stream_events": len(events),
+        "tick_ms_median": tick_ms, "roofline_step_ms": roof_ms,
+        "tick_over_roofline": tick_ms / roof_ms, "launches": {op: launches[op] for op in SMC_OPS},
+        "paged_attention_against_plain": {"max_abs_err": attn_err, "tick": FLEET_ATTN_AT,
+                                          "live": attn["live"]},
     }}), flush=True)
 
 
@@ -1773,7 +1982,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 12. SMC decoding through the scheduler at full width --------------
-    smc_decode_phase(dev, rows)
+    smc = smc_decode_phase(dev, rows)
+    torch.cuda.empty_cache()
+
+    # -- 13. an SMC fleet of two replicas against one, and its replay -------
+    fleet_phase(dev, rows, *smc)
+    del smc
     torch.cuda.empty_cache()
     rows.insert(1, delta_row)
     rows[5:5] = registry_rows[:1]

@@ -1,7 +1,7 @@
 """Serving over the COW-paged KV cache: the cache, the batched decode
-engine, population-based SMC decoding, the continuous-batching scheduler
-and the fault injection / recovery layer (the router, the traces and the
-scheduler simulator are still to port: ROADMAP.md queue 1, item 2)."""
+engine, population-based SMC decoding, the continuous-batching scheduler,
+the fault injection / recovery layer, seeded arrival traces, the
+device-free scheduler simulator and the replicated-fleet router."""
 
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.faults import (
@@ -18,6 +18,13 @@ from repro_torch.serving.faults import (
     chaos_schedule,
 )
 from repro_torch.serving.kv_cache import KVCacheConfig, PagedKVCache
+from repro_torch.serving.router import (
+    PLACEMENT_POLICIES,
+    Replica,
+    Router,
+    RouterEventLog,
+    make_replicas,
+)
 from repro_torch.serving.scheduler import (
     PREEMPT_POLICIES,
     TUNED_DEFAULTS,
@@ -36,11 +43,19 @@ from repro_torch.serving.scheduler import (
     save_checkpoint,
     stream_tokens,
 )
+from repro_torch.serving.sim import (
+    CostModel,
+    SimScheduler,
+    simulate,
+    simulate_router,
+)
 from repro_torch.serving.smc_decode import SMCDecoder
+from repro_torch.serving.traces import Trace, TraceRequest
 
 __all__ = [
     "AdmissionRefused",
     "AllReplicasSaturated",
+    "CostModel",
     "DecodeRequest",
     "DeviceLost",
     "FaultEvent",
@@ -51,23 +66,33 @@ __all__ = [
     "KVCacheConfig",
     "LongestWait",
     "NewestFirst",
+    "PLACEMENT_POLICIES",
     "PREEMPT_POLICIES",
     "PagedKVCache",
     "PreemptPolicy",
+    "Replica",
     "RequestStatus",
     "RetryPolicy",
+    "Router",
+    "RouterEventLog",
     "Scheduler",
     "SchedulerEventLog",
     "ServeEngine",
+    "SimScheduler",
     "SlaAware",
     "SlotTable",
     "SMCDecoder",
     "TokenEvent",
     "TUNED_DEFAULTS",
+    "Trace",
+    "TraceRequest",
     "TransientStepFailure",
     "chaos_schedule",
     "load_checkpoint",
+    "make_replicas",
     "resolve_preempt_policy",
     "save_checkpoint",
+    "simulate",
+    "simulate_router",
     "stream_tokens",
 ]

@@ -44,8 +44,9 @@ from stateful generators:
   float32, which is lossless) and each generator's position
   (:func:`repro_torch.random.state`); :meth:`Scheduler.restore` casts the
   payload back to the cache's dtype.
-* ``SchedulerEventLog.to_trace`` raises until ``serving/traces.py`` is
-  ported (ROADMAP.md queue 1, item 2).
+
+:meth:`SchedulerEventLog.to_trace` gives the recorded run as a trace that
+:mod:`repro_torch.serving.sim` replays decision-exactly.
 """
 
 from __future__ import annotations
@@ -430,10 +431,24 @@ class SchedulerEventLog:
         }
 
     def to_trace(self, name: str = "recorded"):
-        raise NotImplementedError(
-            "replayable traces need serving/traces.py, which is not ported yet "
-            "(ROADMAP.md queue 1, item 2)"
+        """The recorded run as a replayable
+        :class:`~repro_torch.serving.traces.Trace` (submission order
+        preserved; forks as recorded)."""
+        from repro_torch.serving import traces as traces_lib
+
+        reqs = tuple(
+            traces_lib.TraceRequest(
+                rid=rid,
+                arrive_at=spec["arrive_at"],
+                n_particles=spec["n_particles"],
+                steps=spec["steps"],
+                plen=spec["plen"],
+                deadline=spec.get("deadline"),
+                forks=dict(spec["forks"]),
+            )
+            for rid, spec in self.requests.items()
         )
+        return traces_lib.Trace(name=name, requests=reqs)
 
 
 def _sync(device: torch.device) -> None:

@@ -58,6 +58,7 @@ from repro_torch.serving import (  # noqa: E402
 )
 from repro_torch.serving import faults as faults_lib  # noqa: E402
 from repro_torch.serving import scheduler as sched_lib  # noqa: E402
+from repro_torch.serving import sim, traces  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.serving.kv_cache import KVCacheConfig  # noqa: E402
 from repro_torch.serving.smc_decode import SMCDecoder  # noqa: E402
@@ -184,9 +185,33 @@ def test_faults_module_round_trips():
     assert RetryPolicy(backoff_base_s=0.1, backoff_cap_s=0.25).delay_s(3) == 0.25
 
 
-def test_event_log_has_no_trace_yet():
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        SchedulerEventLog().to_trace()
+def test_event_log_has_no_trace_yet(params):
+    """The name is from before ``to_trace`` existed.  A recorded run with
+    a staggered arrival and a forced preemption: its ``to_trace`` keeps
+    submission order, sizes and the forks as recorded, round-trips through
+    JSON, and replays decision-exact through the simulator."""
+    log = SchedulerEventLog()
+    reqs = [make_request("b", 2, n=4, steps=12, plen=9, arrive_at=2),
+            make_request("a", 1, n=6, steps=10, plen=6)]
+
+    def preempt_b(s):
+        if s.tick == 6 and not s.stats.preemptions:
+            s.preempt("b")
+
+    sched, res = run_sched(params, reqs, max_seqs=10, hook=preempt_b, event_log=log)
+    trace = log.to_trace("recorded")
+    assert [r.rid for r in trace.requests] == ["b", "a"] and trace.name == "recorded"
+    for r, tr in zip(reqs, trace.requests, strict=True):
+        assert (tr.arrive_at, tr.n_particles, tr.steps, tr.plen) == (
+            r.arrive_at, r.n_particles, r.steps, len(r.prompt))
+        assert set(tr.forks) == {t for t, on in enumerate(res[r.rid].resampled.tolist()) if on}
+        assert all(len(anc) == r.n_particles for anc in tr.forks.values())
+    assert any(tr.forks for tr in trace.requests)
+    assert traces.from_json(traces.to_json(trace)) == trace
+    replay = sim.simulate(traces.from_json(traces.to_json(trace)), sched.engine.cache_cfg,
+                          sim.CostModel.from_event_log(log), on_boundary=preempt_b)
+    assert sim.first_divergence(log.decisions, replay.decisions) is None
+    assert replay.stats.as_dict() == sched.stats.as_dict() and replay.stats.preemptions == 1
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ weights.  The port draws from a ``Replay`` of the uniforms the reference
 drew (``test_torch_smc_decode.reference_draws``); a rolled-back tick
 restores its generator, so each request's draws stay those of a
 fault-free run.  Every result (integers bit-equal, floats to rtol 1e-5),
-its status, ``SchedulerStats``, the event log's decisions and its
-per-request records must equal the reference's, with the reference's
+its status, ``SchedulerStats``, the event log's decisions, its
+per-request records and its recorded trace (``to_json(to_trace())``) must
+equal the reference's, with the reference's
 smallest top-two sampling gap above 1e-3 (the margin that makes equal
 tokens expected; see ``test_torch_smc_decode``).
 """
@@ -44,6 +45,7 @@ from repro.configs.starcoder2_3b import SMOKE as JSMOKE  # noqa: E402
 from repro.models.model import LanguageModel as JLanguageModel  # noqa: E402
 from repro.serving import faults as jfaults  # noqa: E402
 from repro.serving import scheduler as jsched  # noqa: E402
+from repro.serving import traces as jtraces  # noqa: E402
 from repro.serving.engine import ServeEngine as JServeEngine  # noqa: E402
 from repro.serving.kv_cache import KVCacheConfig as JKVCacheConfig  # noqa: E402
 from repro_torch import random as rnd  # noqa: E402
@@ -51,6 +53,7 @@ from repro_torch.configs.starcoder2_3b import SMOKE  # noqa: E402
 from repro_torch.models.model import LanguageModel  # noqa: E402
 from repro_torch.serving import faults as tfaults  # noqa: E402
 from repro_torch.serving import scheduler as tsched  # noqa: E402
+from repro_torch.serving import traces as ttraces  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.serving.kv_cache import KVCacheConfig  # noqa: E402
 
@@ -132,6 +135,7 @@ def against_reference(weights, gaps, tmp_path, specs, max_seqs, events, knobs, c
         same_result(got[r["rid"]], want[r["rid"]])
     assert tlog.decisions == jlog.decisions
     assert tlog.requests == jlog.requests
+    assert ttraces.to_json(tlog.to_trace()) == jtraces.to_json(jlog.to_trace())
     assert ts.stats.as_dict() == js.stats.as_dict()
     assert ts.check_invariants() == []
     return js
