@@ -159,9 +159,36 @@ Phases (any failed check raises, and the script exits non-zero):
     time, resamples, the median tick wall beside
     ``CostModel.from_roofline``'s step time; the launches go into the
     ``kernels`` rows as ``fleet_launches``.
+14. The paper's five programs (``repro_torch.smc.programs``) at the
+    paper's N and T, each in EAGER, LAZY and LAZY_SR from one generator
+    seed on data from its own ``gen_data``, with the counters set to 0
+    before each program and read after it: RBPF (N = 2,048, T = 500),
+    PCFG (N = 16,384, T = 3,262, the auxiliary filter with its lookahead
+    and its stack in a second store), VBD (N = 4,096, T = 182, particle
+    Gibbs, 3 iterations), MOT (N = 4,096, T = 100), CRBD (N = 5,000,
+    T = 173, the alive filter with ``max_retries=6``).  Checks:
+    ``log_evidence`` (VBD: each iteration's) bit-identical across modes;
+    LAZY_SR's ``materialize_batch`` of all N equal to EAGER's dense
+    trajectories (VBD: the retained reference equal across modes); ``oom``
+    False; LAZY_SR's peak below the dense count (all but PCFG, whose stack
+    store must stay within N x ``max_blocks``); ``cow_write`` launched for
+    all five, ``clone_chain`` for all but VBD, ``refcount_update`` for PCFG
+    and VBD, ``cow_gather`` for VBD.  Each program also runs at N = 64,
+    T = 16 on the CPU path and on the card on the same draws (a
+    ``Replay`` of the CPU run's): ancestors, tables, ``resampled``, stack
+    pointers, exists masks and hidden counts equal, ``log_evidence`` to
+    rtol 1e-5.  ``cow_write`` on PCFG's last generation's 12 masked stack
+    writes, ``refcount_update`` on its last stack clone and ``cow_gather``
+    on VBD's last ``materialize`` (kept from the LAZY runs) equal their
+    plain versions; a masked ``write_at`` at depth 63 on shared LAZY
+    stacks equals the CPU path, the dump row zero.  Prints
+    ``{"programs": ...}``: per program N and T, the median wall per
+    generation in LAZY_SR (the card drained at each generation's start),
+    launches per generation, peaks against dense, ``log_evidence``; the
+    launches go into the ``kernels`` rows as ``programs_launches``.
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
-``{"smc_decode": ...}``, ``{"fleet": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
+``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"programs": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -175,6 +202,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import deque
 from pathlib import Path
 
 import numpy as np
@@ -1688,6 +1716,338 @@ def registry_phase(dev, rate, logw):
     return rows
 
 
+# Phase 14: the paper's five programs (Section 4) at the paper's N and T.
+# The small card-against-CPU runs' sizes, and the ops each program's path
+# must launch.
+PROGRAMS_SMALL = (64, 16)
+# Stacks in the masked write_at check at depth MAX_DEPTH - 1.
+STACK_CHECK_ROWS = 1024
+PROGRAM_OPS = {
+    "rbpf": ("cow_write", "clone_chain"),
+    "pcfg": ("cow_write", "clone_chain", "refcount_update"),
+    "vbd": ("cow_write", "refcount_update", "cow_gather"),
+    "mot": ("cow_write", "clone_chain"),
+    "crbd": ("cow_write", "clone_chain"),
+}
+
+
+class Recorder:
+    """A CPU generator that keeps what it draws, so that a ``Replay`` can
+    hand the same draws to a run on the card."""
+
+    def __init__(self, seed: int):
+        from repro_torch import random as rnd
+
+        self._rnd, self._gen = rnd, rnd.generator(seed, "cpu")
+        self.device = torch.device("cpu")
+        self.draws = []
+
+    def _keep(self, kind, x):
+        self.draws.append((kind, x.numpy().copy()))
+        return x
+
+    def uniform(self, shape):
+        return self._keep("uniform", self._rnd.uniform(self._gen, shape))
+
+    def normal(self, shape):
+        return self._keep("normal", self._rnd.normal(self._gen, shape))
+
+    def poisson(self, rate, shape):
+        return self._keep("poisson", self._rnd.poisson(self._gen, rate, shape))
+
+
+def with_ancestry(ssm, t_steps: int, tree_map):
+    """``ssm`` with each resampling's ancestors kept in its state
+    (``(state, [T, N] int32, count)``); the draws are unchanged."""
+    clone = ssm.clone_state or (lambda s, a: tree_map(lambda x: x[a.long()], s))
+
+    def init(gen, n, params):
+        s = ssm.init(gen, n, params)
+        return s, torch.zeros((t_steps, n), dtype=torch.int32, device=gen.device), 0
+
+    def step(gen, state, t, y, params):
+        s, logw, record = ssm.step(gen, state[0], t, y, params)
+        return (s, *state[1:]), logw, record
+
+    def clone_state(state, anc):
+        s, hist, k = state
+        hist = hist.clone()
+        hist[k] = anc
+        return clone(s, anc), hist, k + 1
+
+    look, pin = ssm.lookahead, ssm.set_reference
+    return ssm._replace(
+        init=init, step=step, clone_state=clone_state,
+        lookahead=None if look is None else (lambda st, t, y, p: look(st[0], t, y, p)),
+        set_reference=None if pin is None else (lambda st, r: (pin(st[0], r), *st[1:])),
+    )
+
+
+def programs_phase(dev, rows) -> None:
+    """Phase 14 (module docstring): each program at its PAPER_N and PAPER_T
+    in EAGER, LAZY and LAZY_SR, its kernels counted from 0, its results
+    checked; the small card-against-CPU runs; PCFG's masked ``write_at``,
+    stack clone and VBD's ``materialize`` against their plain versions on
+    the path's own inputs.  Prints ``{"programs": ...}`` and adds
+    ``programs_launches`` to the kernel rows."""
+    from repro_torch import random as rnd
+    from repro_torch.core import store as store_lib
+    from repro_torch.core.config import ALL_MODES, CopyMode
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.cow_gather import cow_gather, cow_gather_ref
+    from repro_torch.kernels.cow_write import cow_write, cow_write_ref
+    from repro_torch.kernels.refcount_update import refcount_delta, refcount_delta_ref
+    from repro_torch.smc import FilterConfig, ParticleFilter, ParticleGibbs
+    from repro_torch.smc.executor import tree_map
+    from repro_torch.smc.programs import PROBLEMS, pcfg, vbd
+
+    def params_on(mod, where):
+        return mod.default_params(where) if hasattr(mod, "default_params") else None
+
+    def run(mod, mode, n, t, gen, obs, where, ssm=None):
+        ssm = ssm or (mod.build(mode) if mod is pcfg else mod.build())[0]
+        cfg = FilterConfig(n_particles=n, n_steps=t, mode=mode,
+                           max_retries=6 if mod.METHOD == "alive" else 0)
+        if mod.METHOD == "pg":
+            pg = ParticleGibbs(ssm, cfg, device=where)
+            return pg.store_cfg, pg.run(gen, params_on(mod, where), obs, n_iters=vbd.PG_ITERS)
+        pf = ParticleFilter(ssm, cfg, device=where)
+        return pf.store_cfg, pf.run(gen, params_on(mod, where), obs)
+
+    def logz(res):
+        return res.log_evidences if hasattr(res, "log_evidences") else res.log_evidence
+
+    def peak(res):
+        return int(res.peak_blocks if hasattr(res, "log_evidences") else res.store.peak_blocks)
+
+    # The inputs of the last generation's stack writes (MAX_EXPAND x 2) and
+    # the last stack clone of PCFG's LAZY run, and of the last materialize
+    # of VBD's LAZY run, kept for the kernel checks (while `keep` names the
+    # program: from the step of each sweep's last generation but one).
+    kept, keep = {"cow_write": deque(maxlen=2 * pcfg.MAX_EXPAND)}, {"on": None}
+    store_write, store_refcount, store_gather = (
+        store_lib.cow_write, store_lib.refcount_update, store_lib.cow_gather)
+
+    def keep_write(data, src, dst, pos, values):
+        if keep["on"] == "pcfg" and data.dim() == 2:  # the stack's pool: [blocks + 1, 8] cells
+            kept["cow_write"].append((data.clone(), src.clone(), dst.clone(), pos.clone(), values.clone()))
+        return store_write(data, src, dst, pos, values)
+
+    def keep_refcount(refcount, frozen, new_tables, old_tables, *, do_freeze):
+        if keep["on"] == "pcfg":
+            kept["refcount_update"] = (new_tables.clone(), old_tables.clone(), refcount.shape[0])
+        return store_refcount(refcount, frozen, new_tables, old_tables, do_freeze=do_freeze)
+
+    def keep_gather(data, table, out=None):
+        got = store_gather(data, table, out)
+        if keep["on"] == "vbd":
+            kept["cow_gather"] = (data.clone(), table.clone(), got.clone())
+        return got
+
+    report, totals = {}, {}
+    for name, mod in PROBLEMS.items():
+        n, t = mod.PAPER_N, mod.PAPER_T
+        iters = vbd.PG_ITERS if mod.METHOD == "pg" else 1
+        obs = mod.gen_data(rnd.generator(SEED, dev), t)
+        results, walls, gen_ms = {}, {}, []
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        for mode in ALL_MODES:
+            ssm = (mod.build(mode) if mod is pcfg else mod.build())[0]
+            step = ssm.step
+            if mode is CopyMode.LAZY_SR:
+                # One timestamp at each generation's first step (the alive
+                # loop steps again within a generation), the card drained
+                # first: their gaps are the walls per generation.
+                stamps, seen = [], []
+
+                def timed_step(gen, state, t_, y, params, step=step, stamps=stamps, seen=seen):
+                    if not seen or seen[-1] != t_:
+                        torch.cuda.synchronize()
+                        stamps.append(time.perf_counter())
+                        seen.append(t_)
+                    return step(gen, state, t_, y, params)
+
+                ssm = ssm._replace(step=timed_step)
+                before = dispatch.launch_counts()
+            elif mode is CopyMode.LAZY:
+
+                def keeping_step(gen, state, t_, y, params, step=step, name=name, t=t):
+                    keep["on"] = name if t_ >= t - 2 else None
+                    return step(gen, state, t_, y, params)
+
+                ssm = ssm._replace(step=keeping_step)
+            (store_lib.cow_write, store_lib.refcount_update, store_lib.cow_gather) = (
+                keep_write, keep_refcount, keep_gather)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cfg, res = run(mod, mode, n, t, rnd.generator(SEED, dev), obs, dev, ssm=ssm)
+                torch.cuda.synchronize()
+                walls[mode] = time.perf_counter() - t0
+            finally:
+                (store_lib.cow_write, store_lib.refcount_update, store_lib.cow_gather) = (
+                    store_write, store_refcount, store_gather)
+                keep["on"] = None
+            if mode is CopyMode.LAZY_SR:
+                sr_launches = {k: v - before[k] for k, v in dispatch.launch_counts().items()}
+                gen_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:], strict=False)]
+            results[mode] = (cfg, res)
+            print(f"programs: {name} mode={mode.value} N={n} T={t} wall_s={walls[mode]:.3f} "
+                  f"log_evidence={logz(res).tolist()!r} peak_blocks={peak(res)} "
+                  f"oom={bool(res.oom)}", flush=True)
+        launches = dispatch.launch_counts()
+        for op, count in launches.items():
+            totals[op] = totals.get(op, 0) + count
+        for op in PROGRAM_OPS[name]:
+            require(launches[op] > 0, f"{name}: kernel {op} launched on the program's path ({launches[op]})")
+
+        # -- checks: bit-identical across modes, no oom, lazy below dense --
+        bits = {m: logz(r).view(torch.int32).tolist() for m, (_, r) in results.items()}
+        require(bits[CopyMode.EAGER] == bits[CopyMode.LAZY] == bits[CopyMode.LAZY_SR],
+                f"{name}: log_evidence bit-identical across modes ({bits})")
+        for mode, (_, res) in results.items():
+            require(not bool(res.oom), f"{name} {mode.value}: oom is False")
+        dense_blocks = n * -(-t // 4)
+        peaks = {m.value: peak(r) for m, (_, r) in results.items()}
+        entry = {"N": n, "T": t, "method": mod.METHOD, "iterations": iters,
+                 "wall_s": {m.value: w for m, w in walls.items()},
+                 "median_wall_ms_per_generation": float(np.median(gen_ms)),
+                 "generations_timed": len(gen_ms),
+                 "launches_per_generation": {op: sr_launches[op] / (t * iters) for op in FILTER_OPS},
+                 "peak_blocks": peaks, "dense_blocks": dense_blocks,
+                 "log_evidence": logz(results[CopyMode.LAZY_SR][1]).tolist()}
+        if name != "pcfg":
+            require(peaks["lazy_sr"] < dense_blocks,
+                    f"{name}: LAZY_SR peak {peaks['lazy_sr']} below the dense {dense_blocks}")
+        if iters > 1:
+            ref = results[CopyMode.EAGER][1].reference
+            require(all(torch.equal(r.reference, ref) for _, r in results.values()),
+                    f"{name}: the retained reference equal across modes")
+        else:
+            eager = results[CopyMode.EAGER][1]
+            sr_cfg, sr = results[CopyMode.LAZY_SR]
+            trajs = store_lib.materialize_batch(sr_cfg, sr.store, torch.arange(n, device=dev))
+            require(torch.equal(trajs[:, :t], eager.store.dense[:, :t]),
+                    f"{name}: LAZY_SR materialize_batch of all {n} equals EAGER's dense trajectories")
+            del trajs
+        if name == "pcfg":
+            scfg = pcfg._stack_cfg(n, CopyMode.LAZY_SR)
+            stack = results[CopyMode.LAZY_SR][1].state.stack
+            bound = n * scfg.max_blocks
+            entry["stack"] = {"used_blocks": int(store_lib.used_blocks(scfg, stack)),
+                              "peak_blocks": int(stack.peak_blocks), "bound": bound,
+                              "oom": bool(stack.pool.oom.any())}
+            require(entry["stack"]["peak_blocks"] <= bound and not entry["stack"]["oom"],
+                    f"pcfg: the stack store stays within N x max_blocks ({entry['stack']})")
+            print(f"programs: pcfg stack store {json.dumps(entry['stack'])}; trajectory store "
+                  f"peak {peaks['lazy_sr']} of {dense_blocks} dense", flush=True)
+        report[name] = entry
+        del results, obs
+        torch.cuda.empty_cache()
+
+        # -- the card against the CPU path, on the same draws ---------------
+        small_n, small_t = PROGRAMS_SMALL
+        data = mod.gen_data(rnd.generator(SEED + 1, "cpu"), small_t)
+        ssm = (mod.build(CopyMode.LAZY_SR) if mod is pcfg else mod.build())[0]
+        # The alive loop's redraws go through clone_state too: CRBD's
+        # genealogy is held by its tables alone.
+        traced = mod.METHOD != "alive"
+        if traced:
+            ssm = with_ancestry(ssm, small_t, tree_map)
+        recorder = Recorder(SEED + 2)
+        _, cpu = run(mod, CopyMode.LAZY_SR, small_n, small_t, recorder, data, "cpu", ssm=ssm)
+        replay = rnd.Replay(recorder.draws, dev)
+        _, card = run(mod, CopyMode.LAZY_SR, small_n, small_t, replay,
+                      tree_map(lambda x: x.to(dev), data), dev, ssm=ssm)
+        require(replay.remaining == 0, f"{name} small: the card consumed the CPU run's draws")
+        require(torch.allclose(logz(card).cpu(), logz(cpu), rtol=1e-5, atol=0),
+                f"{name} small: log_evidence on the card {logz(card).tolist()} and the CPU "
+                f"{logz(cpu).tolist()} within rtol 1e-5")
+        if iters > 1:
+            same = [(card.used_blocks_trace, cpu.used_blocks_trace), (card.peak_blocks, cpu.peak_blocks)]
+        else:
+            same = [(card.store.tables, cpu.store.tables), (card.resampled, cpu.resampled)]
+            inner_card, inner_cpu = card.state, cpu.state
+            if traced:
+                same.append((card.state[1], cpu.state[1]))
+                inner_card, inner_cpu = card.state[0], cpu.state[0]
+            if name == "pcfg":
+                same.append((inner_card.sp, inner_cpu.sp))
+            elif name == "mot":
+                same.append((inner_card[1], inner_cpu[1]))
+            elif name == "crbd":
+                same.append((inner_card, inner_cpu))
+        for a, b in same:
+            require(torch.equal(a.cpu(), b), f"{name} small: integer results equal on the card and the CPU")
+        print(f"programs: {name} N={small_n} T={small_t} on the card agrees with the CPU path "
+              f"(log_evidence {logz(card).tolist()!r} vs {logz(cpu).tolist()!r})", flush=True)
+
+    # -- kernels against their plain versions on the path's own inputs ------
+    writes = kept.pop("cow_write")
+    routed = {"rows": 0, "masked": 0, "copies": 0}
+    for data, src, dst, pos, values in writes:
+        nb = data.shape[0] - 1
+        got = cow_write(data.clone(), src, dst, pos, values)
+        want = cow_write_ref(data.clone(), src, dst, pos, values)
+        require(torch.equal(got[:nb], want[:nb]) and not got[nb].any(),
+                "pcfg: cow_write equals its plain version on a stack write, the dump row zero")
+        routed["rows"] += src.shape[0]
+        routed["masked"] += int((dst == nb).sum())
+        routed["copies"] += int(((src != dst) & (dst < nb)).sum())
+    require(len(writes) == 2 * pcfg.MAX_EXPAND and routed["masked"] < routed["rows"],
+            f"pcfg: the last generation's stack writes kept, some rows unmasked ({routed})")
+    new, old, nb_rc = kept.pop("refcount_update")
+    mb = new.shape[-1]
+    got = refcount_delta(new.reshape(-1).contiguous(), old.reshape(-1).contiguous(), nb_rc, row=mb)
+    want = refcount_delta_ref(new.reshape(-1).contiguous(), old.reshape(-1).contiguous(), nb_rc)
+    require(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+            "pcfg: refcount_update equals its plain version on the last stack clone")
+    gdata, table, out = kept.pop("cow_gather")
+    require(torch.equal(out, cow_gather_ref(gdata, table)),
+            "vbd: cow_gather equals its plain version on particle Gibbs' last materialize")
+    print(f"programs: cow_write on PCFG's last {len(writes)} stack writes ({json.dumps(routed)}), "
+          f"refcount_update on its last stack clone ({new.shape[0]} x {mb} "
+          f"tables, {nb_rc} blocks), cow_gather on VBD's last materialize ({table.shape[0]} "
+          "blocks) equal their plain versions", flush=True)
+
+    # -- a masked write_at at MAX_DEPTH - 1 on shared stacks, card and CPU --
+    scfg = pcfg._stack_cfg(STACK_CHECK_ROWS, CopyMode.LAZY)
+
+    def shared_stacks(where):
+        """Every cell written, then each stack cloned to two rows (LAZY
+        freezes the shared blocks), and the last write's arguments: even
+        rows at depth MAX_DEPTH - 1, every third row masked off."""
+        gen = rnd.generator(SEED + 3, "cpu")  # one stream of values for both
+        stack = store_lib.create(scfg, where)
+        ids = torch.arange(scfg.n, device=where)
+        for depth in range(pcfg.MAX_DEPTH):
+            stack = store_lib.write_at(scfg, stack, torch.full((scfg.n,), depth, device=where),
+                                       rnd.uniform(gen, (scfg.n,)).to(where))
+        stack = store_lib.clone(scfg, stack, (ids // 2).to(torch.int32))
+        positions = torch.where(ids % 2 == 0, pcfg.MAX_DEPTH - 1, ids % pcfg.MAX_DEPTH).to(torch.int32)
+        return stack, positions, rnd.uniform(gen, (scfg.n,)).to(where), ids % 3 != 0
+
+    cpu_args = shared_stacks("cpu")
+    cpu = store_lib.write_at(scfg, *cpu_args[:3], mask=cpu_args[3])
+    card_args = shared_stacks(dev)
+    dispatch.reset_launch_counts()
+    card = store_lib.write_at(scfg, *card_args[:3], mask=card_args[3])
+    require(dispatch.launch_counts()["cow_write"] == 1, "the stack write_at launched cow_write once")
+    require(torch.equal(card.pool.data[:-1].cpu(), cpu.pool.data[:-1]) and not card.pool.data[-1].any()
+            and torch.equal(card.tables.cpu(), cpu.tables)
+            and torch.equal(card.pool.refcount.cpu(), cpu.pool.refcount),
+            "a masked write_at at MAX_DEPTH - 1 on shared LAZY stacks: the card equals the CPU "
+            "path, the dump row zero")
+    print(f"programs: a masked write_at at depth {pcfg.MAX_DEPTH - 1} on {scfg.n} shared LAZY "
+          "stacks equals the CPU path; the dump row stays zero", flush=True)
+
+    for row in rows:
+        if row["name"] in totals and row["name"] in FILTER_OPS:
+            row["programs_launches"] = totals[row["name"]]
+    print(json.dumps({"programs": report}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1988,6 +2348,10 @@ def main() -> int:
     # -- 13. an SMC fleet of two replicas against one, and its replay -------
     fleet_phase(dev, rows, *smc)
     del smc
+    torch.cuda.empty_cache()
+
+    # -- 14. the paper's five programs at the paper's N and T -------------
+    programs_phase(dev, rows)
     torch.cuda.empty_cache()
     rows.insert(1, delta_row)
     rows[5:5] = registry_rows[:1]

@@ -15,6 +15,9 @@ bool masks, the payload dtype).  A bfloat16 leaf, which numpy holds as
 leaves, layers stacked under ``blocks``) onto the port's tree, checking
 every leaf against the port's own shapes; :func:`kv_cache_from_numpy` /
 :func:`kv_cache_to_numpy` do for a ``PagedKVCache`` what the pool's do.
+:func:`program_params_from_numpy` does for a program's parameters
+(``repro.smc.programs``) what :func:`params_from_numpy` does for a
+model's.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from repro_torch.core.store import ParticleStore
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LanguageModel
 from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.smc.programs import PROBLEMS
 
 __all__ = [
     "to_numpy",
@@ -39,6 +43,7 @@ __all__ = [
     "params_from_numpy",
     "kv_cache_from_numpy",
     "kv_cache_to_numpy",
+    "program_params_from_numpy",
 ]
 
 
@@ -132,3 +137,29 @@ def kv_cache_to_numpy(cache: PagedKVCache) -> PagedKVCache:
     return PagedKVCache(
         pool=pool_to_numpy(cache.pool), tables=_numpy(cache.tables), lengths=_numpy(cache.lengths)
     )
+
+
+def program_params_from_numpy(name: str, params: Any, device: torch.device | str = "cpu") -> Any:
+    """A program's parameters (the reference's params ``NamedTuple`` of
+    ``repro.smc.programs.<name>``, numpy-convertible leaves) as the
+    port's, on ``device``.  Raises unless each field has the shape and
+    dtype of the port's ``default_params()``; programs without
+    parameters take and give ``None``."""
+    mod = PROBLEMS[name]
+    if not hasattr(mod, "default_params"):
+        if params is not None:
+            raise ValueError(f"{name} takes no parameters")
+        return None
+    want = mod.default_params()
+    if tuple(params._fields) != tuple(want._fields):
+        raise ValueError(f"{name}: fields {params._fields}, the port expects {want._fields}")
+    out = []
+    for field, ref in zip(want._fields, want, strict=True):
+        value = _tensor(getattr(params, field), device)
+        if value.shape != ref.shape or value.dtype != ref.dtype:
+            raise ValueError(
+                f"{name}.{field}: {value.dtype}{tuple(value.shape)}, "
+                f"the port expects {ref.dtype}{tuple(ref.shape)}"
+            )
+        out.append(value)
+    return type(want)(*out)

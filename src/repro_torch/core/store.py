@@ -462,7 +462,11 @@ def trajectory(
 def materialize(
     cfg: StoreConfig, store: ParticleStore, i: int | torch.Tensor
 ) -> torch.Tensor:
-    """Eager deep copy of one particle's trajectory, outside the pool."""
+    """Eager deep copy of one particle's trajectory, outside the pool
+    (under EAGER a copy of its dense row, not a view that would keep the
+    whole population alive)."""
+    if cfg.mode is CopyMode.EAGER:
+        return store.dense[i].clone()
     return trajectory(cfg, store, i)
 
 

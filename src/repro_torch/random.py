@@ -1,11 +1,14 @@
 """The port's one source of randomness.
 
-Every draw in the port goes through :func:`uniform` or :func:`normal`
-(:func:`gumbel` transforms :func:`uniform`'s draws).
+Every draw in the port goes through :func:`uniform`, :func:`normal` or
+:func:`poisson` (:func:`gumbel` transforms :func:`uniform`'s draws).
 ``gen`` is a ``torch.Generator`` (on the device the draws should land
-on), or any object with the same two methods — ``uniform(shape)`` and
-``normal(shape)`` returning float32 tensors — such as :class:`Replay`,
-through which the tests feed the JAX reference's draws to the port.
+on), or any object with the same three methods — ``uniform(shape)`` and
+``normal(shape)`` returning float32 tensors, ``poisson(rate, shape)``
+int32 counts — such as :class:`Replay`, through which the tests feed the
+JAX reference's draws to the port.  No port algorithm turns uniforms
+into the reference's Poisson counts, so a replay hands the counts over
+as recorded.
 
 The filter draws in the same order in every copy mode (init normals;
 then per generation the resampling uniforms, the propagation normals
@@ -25,6 +28,7 @@ __all__ = [
     "uniform",
     "normal",
     "gumbel",
+    "poisson",
     "Replay",
     "snapshot",
     "state",
@@ -68,12 +72,23 @@ def gumbel(gen: Any, shape: Sequence[int]) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def poisson(gen: Any, rate: Any, shape: Sequence[int]) -> torch.Tensor:
+    """Int32 Poisson counts of ``shape`` at ``rate`` (a number or a tensor
+    that broadcasts to ``shape``)."""
+    if isinstance(gen, torch.Generator):
+        rates = torch.as_tensor(rate, dtype=torch.float32, device=gen.device)
+        rates = torch.broadcast_to(rates, tuple(shape)).contiguous()
+        return torch.poisson(rates, generator=gen).to(torch.int32)
+    return gen.poisson(rate, tuple(shape))
+
+
 class Replay:
     """Recorded draws handed out in order: ``draws`` is a sequence of
-    ``("uniform" | "normal", array)`` pairs, each returned (as float32 on
-    ``device``) by the call of that kind and shape that comes next.  A
-    call out of order raises, so a replayed run consumes exactly the
-    recorded stream."""
+    ``("uniform" | "normal" | "poisson", array)`` pairs, each returned (on
+    ``device``; float32, the counts int32) by the call of that kind and
+    shape that comes next.  A call out of order raises, so a replayed run
+    consumes exactly the recorded stream.  A ``poisson`` call's rate is
+    not read: the counts are the recorded ones."""
 
     def __init__(self, draws: Sequence[Tuple[str, Any]], device: torch.device | str = "cpu"):
         self._draws = list(draws)
@@ -90,6 +105,9 @@ class Replay:
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
         return self._take("normal", tuple(shape))
 
+    def poisson(self, rate: Any, shape: Sequence[int]) -> torch.Tensor:
+        return self._take("poisson", tuple(shape))
+
     def clone(self) -> "Replay":
         copy = Replay(self._draws, self.device)
         copy._next = self._next
@@ -99,7 +117,8 @@ class Replay:
         if self._next >= len(self._draws):
             raise IndexError(f"replay exhausted: asked for {kind}{shape}")
         want_kind, arr = self._draws[self._next]
-        out = torch.as_tensor(np.array(arr, dtype=np.float32), device=self.device)
+        dtype = np.int32 if want_kind == "poisson" else np.float32
+        out = torch.as_tensor(np.array(arr, dtype=dtype), device=self.device)
         if want_kind != kind or tuple(out.shape) != shape:
             raise ValueError(
                 f"draw {self._next}: asked for {kind}{shape}, recorded "

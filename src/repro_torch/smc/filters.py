@@ -352,12 +352,9 @@ class ParticleFilter:
 
 
 def _as_tensors(tree: Any, dev: torch.device) -> Any:
-    """Observations as tensors on ``dev`` (numpy leaves are accepted)."""
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_as_tensors(x, dev) for x in tree)
-    if isinstance(tree, dict):
-        return {k: _as_tensors(v, dev) for k, v in tree.items()}
-    return torch.as_tensor(tree, device=dev)
+    """Observations as tensors on ``dev`` (numpy leaves are accepted;
+    tuples, NamedTuples, lists and dicts keep their type)."""
+    return tree_map(lambda x: torch.as_tensor(x, device=dev), tree)
 
 
 def _float32(o: torch.Tensor) -> torch.Tensor:

@@ -45,7 +45,10 @@ from repro_torch.kernels.resample import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.serving import crosscheck as cc  # noqa: E402
 from repro_torch.serving.crosscheck import LOGIT_TOL, card_against_cpu, smoke_program  # noqa: E402
+from repro_torch.kernels.cow_write import cow_write_ref  # noqa: E402
+from repro_torch.kernels.refcount_update import refcount_delta_ref  # noqa: E402
 from repro_torch.smc.filters import FilterConfig, ParticleFilter, SSMDef  # noqa: E402
+from repro_torch.smc.programs import pcfg  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -73,6 +76,7 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"pool.py", "store.py", "filters.py", "ops.py", "chip_smoke.py"} <= names
     assert {"faults.py", "smc_decode.py", "scheduler.py", "torch_smc_decode.py"} <= names
+    assert {"pgibbs.py", "pcfg.py", "crbd.py", "torch_particle_gibbs.py"} <= names
 
 
 def lgssm() -> SSMDef:
@@ -872,3 +876,79 @@ class TestPagedAttentionSplits:
             kw = dict(parent=p_, dirty=dy) if delta else {}
             outs.append(paged_attention(qd, d_[:, 0, 0], d_[:, 0, 1], t_, ld, **kw))
         assert torch.equal(outs[0], outs[1])
+
+
+def shared_stacks(device, n=256):
+    """PCFG stacks with every cell written, each cloned to two rows (LAZY
+    freezes the shared blocks), and a masked write's arguments: even rows
+    at depth MAX_DEPTH - 1, every third row masked off."""
+    scfg = pcfg._stack_cfg(n, CopyMode.LAZY)
+    gen = rnd.generator(3, "cpu")  # one stream of values on every device
+    stack = tstore.create(scfg, device)
+    ids = torch.arange(n, device=device)
+    for depth in range(pcfg.MAX_DEPTH):
+        values = rnd.uniform(gen, (n,)).to(device)
+        stack = tstore.write_at(scfg, stack, torch.full((n,), depth, device=device), values)
+    stack = tstore.clone(scfg, stack, (ids // 2).to(torch.int32))
+    positions = torch.where(ids % 2 == 0, pcfg.MAX_DEPTH - 1, ids % pcfg.MAX_DEPTH).to(torch.int32)
+    return scfg, stack, positions, rnd.uniform(gen, (n,)).to(device), ids % 3 != 0
+
+
+def test_masked_stack_write_at_the_top_on_the_cpu():
+    """A masked write_at at MAX_DEPTH - 1 on shared LAZY stacks: written
+    rows copy their block and change one cell, masked rows change nothing,
+    the dump row stays zero."""
+    scfg, stack, positions, values, mask = shared_stacks("cpu")
+    before = tstore.materialize_batch(scfg, stack, torch.arange(scfg.n))
+    after = tstore.write_at(scfg, stack, positions, values, mask=mask)
+    cells = tstore.materialize_batch(scfg, after, torch.arange(scfg.n))
+    rows = torch.arange(scfg.n)
+    want = before.clone()
+    want[rows[mask], positions[mask].long()] = values[mask]
+    assert torch.equal(cells, want) and not after.pool.data[-1].any() and not bool(after.pool.oom)
+
+
+@pytest.mark.cuda
+class TestProgramsOnCard:
+    """PCFG's stack on the card: its masked writes and its clone against
+    the plain versions on the path's own inputs."""
+
+    def test_pcfg_stack_writes_and_clone_match_plain(self, cuda_device, monkeypatch):
+        kept = {"writes": [], "clones": []}
+        write, refcount = tstore.cow_write, tstore.refcount_update
+
+        def keep_write(data, src, dst, pos, values):
+            if data.dim() == 2:  # the stack's pool: [blocks + 1, 8] cells
+                kept["writes"].append((data.clone(), src.clone(), dst.clone(), pos.clone(), values.clone()))
+            return write(data, src, dst, pos, values)
+
+        def keep_refcount(rc, frozen, new, old, *, do_freeze):
+            kept["clones"].append((new.clone(), old.clone(), rc.shape[0]))
+            return refcount(rc, frozen, new, old, do_freeze=do_freeze)
+
+        monkeypatch.setattr(tstore, "cow_write", keep_write)
+        monkeypatch.setattr(tstore, "refcount_update", keep_refcount)
+        ssm, _ = pcfg.build(CopyMode.LAZY)
+        obs = pcfg.gen_data(rnd.generator(0, cuda_device), 12)
+        cfg = FilterConfig(n_particles=256, n_steps=12, mode=CopyMode.LAZY)
+        res = ParticleFilter(ssm, cfg, device=cuda_device).run(
+            rnd.generator(1, cuda_device), pcfg.default_params(cuda_device), obs
+        )
+        assert not bool(res.oom) and kept["writes"] and kept["clones"]
+        for data, src, dst, pos, values in kept["writes"]:
+            got = cow_write(data.clone(), src, dst, pos, values)
+            assert torch.equal(got[:-1], cow_write_ref(data.clone(), src, dst, pos, values)[:-1])
+            assert not got[-1].any()
+        for new, old, nb in kept["clones"]:
+            flat = new.reshape(-1).contiguous(), old.reshape(-1).contiguous()
+            got = refcount_delta(*flat, nb, row=new.shape[-1])
+            assert all(torch.equal(a, b) for a, b in zip(got, refcount_delta_ref(*flat, nb), strict=True))
+
+    def test_masked_stack_write_at_the_top_equals_the_cpu(self, cuda_device):
+        card = shared_stacks(cuda_device)
+        cpu = shared_stacks("cpu")
+        got = tstore.write_at(card[0], *card[1:4], mask=card[4])
+        want = tstore.write_at(cpu[0], *cpu[1:4], mask=cpu[4])
+        assert torch.equal(got.pool.data[:-1].cpu(), want.pool.data[:-1]) and not got.pool.data[-1].any()
+        assert torch.equal(got.tables.cpu(), want.tables)
+        assert torch.equal(got.pool.refcount.cpu(), want.pool.refcount)
