@@ -187,8 +187,40 @@ Phases (any failed check raises, and the script exits non-zero):
     launches per generation, peaks against dense, ``log_evidence``; the
     launches go into the ``kernels`` rows as ``programs_launches``.
 
+15. The moe and audio families at full width, each model drawn on the
+    card leaf by leaf with every layer matrix cast to bf16 as it is drawn
+    (``serving.engine.draw_cast_params``; the router stays float32), the
+    peak device memory printed.  deepseek-moe-16b as the repo's
+    ``ModelConfig`` reads it (28 layers, layer 0 dense with d_ff 11,264;
+    d_model 2048; 16 heads over 16 KV heads of 128; 64 routed experts
+    top-6 plus 2 shared, expert d_ff 1408; vocab 102,400, untied;
+    capacity factor 1.25), its unembedding scaled by 8 (as drawn the
+    proposal is near flat, see ``MOE_UNEMBED_SCALE``): 4 prompts of 500
+    tokens served on 16 rows (16 sampled tokens), whole-page and delta
+    COW, bit-identical; then phase 12's two 16-particle requests on 32
+    rows with 32 steps through the scheduler (counters from 0; each
+    request resampled; ``paged_attention``, ``clone_chain``,
+    ``cow_write``, ``cow_gather`` launched), the delta-COW run and a
+    checkpoint at tick 16 restored on a fresh engine, both bit-exact; each
+    request alone and a preemption at tick 10 run and reported, not
+    required (expert capacity couples the rows of a step); the (token,
+    expert) pairs dropped at tick 24 from the routing's keep mask; tick
+    24's ``paged_attention`` (whole-page, from the restored run) and
+    ``paged_attention_delta`` calls (G = 1, head dim 128) and the token
+    store's last ``cow_write``, ``clone_chain`` and final ``cow_gather``
+    against their plain versions; ``python -m repro_torch.launch.serve
+    --arch deepseek_moe_16b --full``.  musicgen-large (48 layers, d_model
+    2048, 32 heads over 32 of 64, GELU MLP, vocab 2,048): served the same
+    way, bit-identical, its last step's paged attention (head dim 64)
+    against the plain version, and its serve CLI.  The smoke configs of
+    both on the card against the CPU path (``crosscheck``: routing equal
+    wherever the k-th and (k+1)-th gates lie more than 1e-4 apart).
+    Prints ``{"families": ...}``; the launches and the new shapes' times
+    go into the ``kernels`` rows as ``family_launches`` and
+    ``family_shapes``.
+
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
-``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"programs": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
+``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"programs": ...}``, ``{"families": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -196,6 +228,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -727,13 +760,8 @@ def smc_decode_phase(dev, rows):
     weights and the cache config, which phase 13 reuses."""
     import pickle
 
-    from repro_torch import random as rnd
     from repro_torch.configs.starcoder2_3b import CONFIG
-    from repro_torch.core import store as store_lib
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels.clone_chain import clone_chain_kernel, clone_chain_ref, weights_cdf
-    from repro_torch.kernels.cow_gather import cow_gather, cow_gather_ref
-    from repro_torch.kernels.cow_write import cow_write, cow_write_ref
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
     from repro_torch.kernels.paged_attention.ops import split_plan
     from repro_torch.launch import serve as serve_cli
@@ -883,62 +911,21 @@ def smc_decode_phase(dev, rows):
     # -- a forced preemption at tick 20 and its resume; the inputs of the
     # token store's last cow_write, clone_chain and cow_gather calls kept --
     captured = {}
-    store_write, store_chain, store_gather = (
-        store_lib.cow_write, store_lib.clone_chain_op, store_lib.cow_gather)
-
-    def capture_write(data, src, dst, pos, values):
-        captured["cow_write"] = (data.clone(), src.clone(), dst.clone(), pos.clone(), values.clone())
-        return store_write(data, src, dst, pos, values)
-
-    def capture_chain(gen, logw, tables, *, num_blocks):
-        # The uniform the chain is about to draw, from a copy of its generator.
-        u = rnd.uniform(rnd.snapshot(gen), ()).to(logw.device)
-        captured["clone_chain"] = (weights_cdf(logw), u, tables.clone(), num_blocks)
-        return store_chain(gen, logw, tables, num_blocks=num_blocks)
-
-    def capture_gather(data, table, out=None):
-        got = store_gather(data, table, out)
-        captured["cow_gather"] = (data.clone(), table.clone(), got.clone())
-        return got
 
     def preempt_once(s):
         if s.tick == SMC_PREEMPT_AT and not s.stats.preemptions:
             s.preempt(rids[-1])
 
     sched = schedule([request(i) for i in range(SMC_REQUESTS)], on_boundary=preempt_once)
-    store_lib.cow_write, store_lib.clone_chain_op, store_lib.cow_gather = (
-        capture_write, capture_chain, capture_gather)
-    try:
+    with token_store_calls(captured):
         res = sched.run()
-    finally:
-        store_lib.cow_write, store_lib.clone_chain_op, store_lib.cow_gather = (
-            store_write, store_chain, store_gather)
     require(sched.stats.preemptions == 1 and sched.stats.replayed_tokens == SMC_PREEMPT_AT,
             f"one preemption at tick {SMC_PREEMPT_AT}, {SMC_PREEMPT_AT} tokens replayed")
     for rid in rids:
         same(res[rid], main[rid], f"{rid} with a preemption at tick {SMC_PREEMPT_AT}")
     print(f"smc: preempted {rids[-1]} at tick {SMC_PREEMPT_AT} and resumed: bit-exact", flush=True)
 
-    data, src, dst, pos, values = captured["cow_write"]
-    require(data.dtype == torch.int32 and data.dim() == 2 and values.dim() == 1,
-            f"the token store's pool is int32 with items () ({data.dtype}, {tuple(data.shape)})")
-    got = cow_write(data.clone(), src, dst, pos, values)
-    want = cow_write_ref(data.clone(), src, dst, pos, values)
-    require(torch.equal(got[:-1], want[:-1]) and not got[-1].any(),
-            "cow_write equals its plain version at the token store's shapes")
-    cum, u, tables, nb = captured["clone_chain"]
-    got = clone_chain_kernel(cum, u, tables, nb)
-    want = clone_chain_ref(cum, u, tables, nb)
-    require(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
-            "clone_chain equals its plain version at the token store's shapes")
-    data, table, out = captured["cow_gather"]
-    require(data.dtype == torch.int32 and data.dim() == 2,
-            f"the last cow_gather read the token store ({data.dtype}, {tuple(data.shape)})")
-    require(torch.equal(out, cow_gather_ref(data, table)) and torch.equal(cow_gather(data, table), out),
-            "the token store's final cow_gather equals its plain version, and a repeat call")
-    print(f"smc: cow_write (int32 pool {tuple(data.shape)}, {src.shape[0]} rows), clone_chain "
-          f"({tables.shape[0]} x {tables.shape[1]} tables, {nb} blocks) and the final cow_gather "
-          f"({table.shape[0]} blocks) equal their plain versions", flush=True)
+    print(f"smc: {check_token_store_calls(captured, 'smc')} equal their plain versions", flush=True)
 
     # One tick's paged-attention calls, kept from the next two runs (layer 0
     # and the last layer), with what the path computed.
@@ -1070,6 +1057,72 @@ def smc_decode_phase(dev, rows):
         "fork_tick_faulted": fork,
     }}), flush=True)
     return lm, weights, ccfg
+
+
+@contextlib.contextmanager
+def token_store_calls(captured: dict):
+    """While open, the store's ``cow_write``, ``clone_chain`` and
+    ``cow_gather`` keep their latest call's inputs (``cow_gather`` its
+    output too) in ``captured``; the SMC token store is their caller."""
+    from repro_torch import random as rnd
+    from repro_torch.core import store as store_lib
+    from repro_torch.kernels.clone_chain import weights_cdf
+
+    store_write, store_chain, store_gather = (
+        store_lib.cow_write, store_lib.clone_chain_op, store_lib.cow_gather)
+
+    def capture_write(data, src, dst, pos, values):
+        captured["cow_write"] = (data.clone(), src.clone(), dst.clone(), pos.clone(), values.clone())
+        return store_write(data, src, dst, pos, values)
+
+    def capture_chain(gen, logw, tables, *, num_blocks):
+        # The uniform the chain is about to draw, from a copy of its generator.
+        u = rnd.uniform(rnd.snapshot(gen), ()).to(logw.device)
+        captured["clone_chain"] = (weights_cdf(logw), u, tables.clone(), num_blocks)
+        return store_chain(gen, logw, tables, num_blocks=num_blocks)
+
+    def capture_gather(data, table, out=None):
+        got = store_gather(data, table, out)
+        captured["cow_gather"] = (data.clone(), table.clone(), got.clone())
+        return got
+
+    store_lib.cow_write, store_lib.clone_chain_op, store_lib.cow_gather = (
+        capture_write, capture_chain, capture_gather)
+    try:
+        yield captured
+    finally:
+        store_lib.cow_write, store_lib.clone_chain_op, store_lib.cow_gather = (
+            store_write, store_chain, store_gather)
+
+
+def check_token_store_calls(captured: dict, what: str) -> str:
+    """The token store's kept ``cow_write``, ``clone_chain`` and final
+    ``cow_gather`` (``token_store_calls``) against their plain versions,
+    exact; returns what was checked, for the log."""
+    from repro_torch.kernels.clone_chain import clone_chain_kernel, clone_chain_ref
+    from repro_torch.kernels.cow_gather import cow_gather, cow_gather_ref
+    from repro_torch.kernels.cow_write import cow_write, cow_write_ref
+
+    data, src, dst, pos, values = captured.pop("cow_write")
+    require(data.dtype == torch.int32 and data.dim() == 2 and values.dim() == 1,
+            f"{what}: the token store's pool is int32 with items () ({data.dtype}, {tuple(data.shape)})")
+    got = cow_write(data.clone(), src, dst, pos, values)
+    want = cow_write_ref(data.clone(), src, dst, pos, values)
+    require(torch.equal(got[:-1], want[:-1]) and not got[-1].any(),
+            f"{what}: cow_write equals its plain version at the token store's shapes")
+    pool, rows = tuple(data.shape), src.shape[0]
+    cum, u, tables, nb = captured.pop("clone_chain")
+    got = clone_chain_kernel(cum, u, tables, nb)
+    want = clone_chain_ref(cum, u, tables, nb)
+    require(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+            f"{what}: clone_chain equals its plain version at the token store's shapes")
+    data, table, out = captured.pop("cow_gather")
+    require(data.dtype == torch.int32 and data.dim() == 2,
+            f"{what}: the last cow_gather read the token store ({data.dtype}, {tuple(data.shape)})")
+    require(torch.equal(out, cow_gather_ref(data, table)) and torch.equal(cow_gather(data, table), out),
+            f"{what}: the token store's final cow_gather equals its plain version, and a repeat call")
+    return (f"cow_write (int32 pool {pool}, {rows} rows), clone_chain ({tables.shape[0]} x "
+            f"{tables.shape[1]} tables, {nb} blocks) and the final cow_gather ({table.shape[0]} blocks)")
 
 
 # Phase 13: an SMC fleet.  The trace's requests (phase 12's sizes) arrive
@@ -2048,6 +2101,443 @@ def programs_phase(dev, rows) -> None:
     print(json.dumps({"programs": report}), flush=True)
 
 
+# Phase 15: the moe and audio families at full width.  deepseek-moe-16b
+# (28 layers, layer 0 dense, 64 routed experts top-6 + 2 shared, 16 heads
+# over 16 KV heads of 128, vocab 102,400, untied) and musicgen-large (48
+# layers, 32 heads over 32 of 64, non-gated GELU MLP, vocab 2,048), random
+# weights from the seed, each layer matrix cast to bf16 as it is drawn.
+MOE_ARCH, AUDIO_ARCH = "deepseek_moe_16b", "musicgen_large"
+FAMILY_SERVE_TOKENS = 16
+MOE_SMC_STEPS = 32
+MOE_PREEMPT_AT = 10
+MOE_CHECKPOINT_AT = 16
+# The tick whose paged-attention calls and routing are kept.
+MOE_ATTN_AT = 24
+# As drawn, deepseek's untied unembedding (std 1/sqrt(102,400)) gives
+# logits of std ~0.14 over the normed state: the proposal is nearly flat,
+# the weights barely move and the population seldom resamples.  Scaled by
+# 8 the logits have std ~1.1.  The phase prints the first step's proposal
+# both ways.
+MOE_UNEMBED_SCALE = 8.0
+
+
+class AttentionTap:
+    """Stands in for the engine's ``paged_attention``: while ``armed``, keeps
+    the first and the latest call (inputs and output) of the tick."""
+
+    def __init__(self, attention):
+        self.attention, self.armed, self.calls = attention, False, []
+
+    def __call__(self, q, k_pool, v_pool, tables, lengths, **kw):
+        out = self.attention(q, k_pool, v_pool, tables, lengths, **kw)
+        if self.armed:
+            kv = torch.stack([k_pool, v_pool], 1).clone()  # [rows, 2, bs, KVH, hd]
+            self.calls.append((q.clone(), kv, tables.clone(), lengths.clone(),
+                               {k: v.clone() for k, v in kw.items()}, out.clone()))
+            del self.calls[1:-1]
+        return out
+
+
+def attention_row(rate, calls, n_heads, what) -> dict:
+    """The kept calls against the plain version (bf16, atol 1e-2; a repeat
+    call bit-equal), then the first call's device time, the plain
+    version's and its bound."""
+    import types
+
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
+
+    require(len(calls) == 2, f"{what}: the tick's first and last paged-attention calls kept")
+    errs = []
+    for q, kv, tables, lengths, kw, out in calls:
+        args = (q, kv[:, 0], kv[:, 1], tables, lengths)
+        require(torch.equal(paged_attention(*args, **kw), out), f"{what}: a repeat call is bit-equal")
+        errs.append((out.float() - paged_attention_ref(*args, **kw).float()).abs().max().item())
+    err = max(errs)
+    require(err <= 1e-2, f"{what}: bf16 kernel within atol 1e-2 of its plain version ({err})")
+    q, kv, tables, lengths, kw, _ = calls[0]
+    args = (q, kv[:, 0], kv[:, 1], tables, lengths)
+    pool = types.SimpleNamespace(data=kv[:, None], parent=kw.get("parent"), dirty=kw.get("dirty"))
+    moved = paged_bytes(types.SimpleNamespace(pool=pool, tables=tables, lengths=lengths), bool(kw), n_heads)
+    bytes_ms = moved / rate * 1e3
+    ops_ms = 4 * n_heads * q.shape[-1] * int(lengths.sum()) / BF16_RATE * 1e3
+    return {"max_abs_err": err, "ms": device_ms(lambda: paged_attention(*args, **kw)),
+            "plain_ms": device_ms(lambda: paged_attention_ref(*args, **kw)),
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": moved, "rows": q.shape[0], "heads": q.shape[1], "kv_heads": kv.shape[3],
+            "head_dim": q.shape[-1], "slots_read": int(lengths.sum())}
+
+
+def serve_both(dev, lm, weights, prompts, label):
+    """Prefill ``prompts`` into 16 rows' engine, fork each to 4 rows,
+    decode FAMILY_SERVE_TOKENS Gumbel-sampled tokens, once with whole-page
+    and once with delta COW: logits and tokens bit-identical.  Returns the
+    prefill's logits, the whole-page run's last step's paged-attention
+    calls, the runs' launches and their times."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = lm.cfg
+    plen = prompts.shape[1]
+    base = kvc.KVCacheConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        block_size=SERVE_BLOCK, max_seqs=SERVE_SLOTS,
+        max_blocks_per_seq=-(-(plen + FAMILY_SERVE_TOKENS + 16) // SERVE_BLOCK), dtype=cfg.dtype,
+    )
+    base = kvc.KVCacheConfig(**{**vars(base), "num_blocks": base.pool_blocks_cap})
+    groups = SERVE_SLOTS // prompts.shape[0]
+    tap = AttentionTap(engine_lib.paged_attention)
+    runs = {}
+    dispatch.reset_launch_counts()
+    for delta_cow in (False, True):
+        engine = ServeEngine(lm, weights, kvc.KVCacheConfig(**{**vars(base), "delta_cow": delta_cow}),
+                             device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = engine.prefill(prompts, torch.arange(prompts.shape[0], dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        anc = torch.arange(SERVE_SLOTS, device=dev) // groups
+        tok = gumbel_sample(logits, gen)[anc][:, None]
+        engine.fork(anc)
+        out = {"logits": [logits], "tokens": []}
+        engine_lib.paged_attention = tap
+        try:
+            t = time.perf_counter()
+            for step in range(FAMILY_SERVE_TOKENS):
+                tap.armed = not delta_cow and step == FAMILY_SERVE_TOKENS - 1
+                logits = engine.decode(tok)
+                tok = gumbel_sample(logits, gen)[:, None]
+                out["logits"].append(logits)
+                out["tokens"].append(tok)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t
+        finally:
+            engine_lib.paged_attention = tap.attention
+            tap.armed = False
+        require(not engine.oom, f"{label} delta_cow={delta_cow}: oom is False")
+        for lg in out["logits"]:
+            require(bool(torch.isfinite(lg).all()) and lg.shape[-1] == cfg.padded_vocab,
+                    f"{label}: finite logits over the padded vocabulary")
+        print(f"{label} serve delta_cow={delta_cow}: prefill {prompts.shape[0]} x {plen} tokens "
+              f"{prefill_s:.3f} s; {FAMILY_SERVE_TOKENS} tokens x {SERVE_SLOTS} rows in {decode_s:.3f} s "
+              f"({decode_s / FAMILY_SERVE_TOKENS * 1e3:.2f} ms per token); live pages "
+              f"{int(kvc.used_blocks(engine.cache))}; oom=False", flush=True)
+        runs[delta_cow] = (engine, out, prefill_s, decode_s)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    for op in ("paged_attention", "paged_attention_delta"):
+        require(launches[op] > 0, f"{label}: kernel {op} launched on the serving path ({launches[op]})")
+    whole, delta = runs[False][1], runs[True][1]
+    for key in ("logits", "tokens"):
+        for a, b in zip(whole[key], delta[key], strict=True):
+            require(torch.equal(a, b), f"{label}: delta COW on and off give bit-identical {key}")
+    print(f"{label} serve: delta COW on and off bit-identical over {len(whole['logits'])} logit sets "
+          f"and {len(whole['tokens'])} token steps; launches {json.dumps(launches)}", flush=True)
+    summary = {"prefill_s": {str(k): v[2] for k, v in runs.items()},
+               "decode_ms_per_token": {str(k): v[3] / FAMILY_SERVE_TOKENS * 1e3 for k, v in runs.items()}}
+    return whole["logits"][0], tap.calls, launches, summary
+
+
+def family_phase(dev, rate, rows) -> None:
+    """Phase 15 (module docstring): deepseek-moe-16b served and decoding SMC
+    populations through the scheduler, musicgen-large served, both at full
+    width, the paged kernel against its plain version at G = 1 and head
+    dims 128 and 64, the smoke configs on the card against the CPU, and the
+    serve CLI for both.  Adds the launches and the new shapes' times to the
+    kernel rows."""
+    import pickle
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.crosscheck import LOGIT_TOL, ROUTE_GAP, card_against_cpu
+    from repro_torch.serving.engine import ServeEngine, draw_cast_params
+    from repro_torch.serving.scheduler import DecodeRequest, Scheduler, SchedulerEventLog
+
+    phase_t0 = time.perf_counter()
+    report = {}
+    cfg = get_config(MOE_ARCH)
+    lm = LanguageModel(cfg)
+    torch.cuda.synchronize()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    weights = draw_cast_params(lm, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    drawn_s = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    n_params = sum(int(np.prod(s)) for s in lm.param_specs().values())
+    print(f"moe: {cfg.name} drawn leaf by leaf and cast in {drawn_s:.1f} s: {n_params} parameters; "
+          f"device memory before {before_gib:.2f} GiB, peak while drawing {peak_gib:.2f} GiB, "
+          f"held after {held_gib:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
+    require(peak_gib < 60, f"the drawing's peak {peak_gib:.2f} GiB stays near the cast tree plus one leaf")
+    report["deepseek_weights"] = {"parameters": n_params, "draw_s": drawn_s, "peak_gib": peak_gib,
+                                  "held_gib": held_gib}
+    weights["unembed"].mul_(MOE_UNEMBED_SCALE)
+
+    # -- 1. serve: 4 prompts of 500 tokens, 16 rows, whole-page and delta ----
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_PROMPTS, SERVE_PROMPT_LEN),
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 30), device=dev)
+    prefill, _, serve_launches, report["deepseek_serve"] = serve_both(dev, lm, weights, prompts, "moe")
+    first = prefill[0]
+
+    def proposal(logits):
+        p = torch.softmax(logits, dim=-1)
+        return {"top_prob": p.max().item(), "entropy_nats": -torch.xlogy(p, p).sum().item(),
+                "logit_std": logits.std().item()}
+
+    report["first_step_proposal"] = {"scaled": proposal(first),
+                                     "as_drawn": proposal(first / MOE_UNEMBED_SCALE)}
+    print(f"moe: the first step's proposal {json.dumps(report['first_step_proposal'])}", flush=True)
+
+    # -- 2. SMC decoding through the scheduler ---------------------------------
+    ccfg = kvc.KVCacheConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        block_size=SERVE_BLOCK, max_seqs=SMC_SLOTS,
+        max_blocks_per_seq=-(-(SMC_PROMPT_LEN + MOE_SMC_STEPS + 16) // SERVE_BLOCK), dtype=cfg.dtype,
+    )
+    smc_prompts = torch.randint(0, cfg.vocab_size, (SMC_REQUESTS, SMC_PROMPT_LEN),
+                                generator=torch.Generator(device=dev).manual_seed(SEED + 32), device=dev)
+    rids = [f"m{i}" for i in range(SMC_REQUESTS)]
+
+    def request(i):
+        return DecodeRequest(
+            rid=rids[i], prompt=smc_prompts[i], n_particles=SMC_PARTICLES, steps=MOE_SMC_STEPS,
+            gen=torch.Generator(device=dev).manual_seed(SEED + 33 + i),
+            target_temp=SMC_TARGET_TEMP, proposal_temp=SMC_PROPOSAL_TEMP, ess_threshold=SMC_ESS,
+        )
+
+    def schedule(reqs, delta_cow=False, **kw):
+        sched = Scheduler(ServeEngine(lm, weights, kvc.KVCacheConfig(**{**vars(ccfg), "delta_cow": delta_cow}),
+                                      device=dev), **kw)
+        for r in reqs:
+            sched.submit(r)
+        return sched
+
+    def same(got, want):
+        return all(torch.equal(getattr(got, f), getattr(want, f))
+                   for f in ("tokens", "log_weights", "log_evidence", "ess_trace", "resampled"))
+
+    log = SchedulerEventLog()
+    sched = schedule([request(i) for i in range(SMC_REQUESTS)], event_log=log)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    walls = []
+    t0 = time.perf_counter()
+    while True:
+        t = time.perf_counter()
+        more = sched.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if not more:
+            break
+    wall_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    main, ticks = sched.results, sched.stats.ticks
+    for op in SMC_OPS:
+        require(launches[op] > 0, f"moe SMC: kernel {op} launched on the path ({launches[op]})")
+    dense = SMC_REQUESTS * SMC_PARTICLES * -(-(SMC_PROMPT_LEN + MOE_SMC_STEPS) // SERVE_BLOCK)
+    for rid in rids:
+        res = main[rid]
+        require(res.status == "ok" and not bool(res.oom), f"moe {rid}: ok, oom False")
+        require(bool(res.resampled.any()), f"moe {rid}: resampled at least once ({res.ess_trace.tolist()})")
+        require(tuple(res.tokens.shape) == (SMC_PARTICLES, MOE_SMC_STEPS)
+                and bool(((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()),
+                f"moe {rid}: tokens in the vocabulary")
+        require(math.isfinite(float(res.log_evidence)) and bool(torch.isfinite(res.ess_trace).all()),
+                f"moe {rid}: finite log-evidence and ESS")
+    median_ms = sorted(walls)[len(walls) // 2] * 1e3
+    print(f"moe smc main: {ticks} ticks in {wall_s:.2f} s; per tick median {median_ms:.2f} ms; resamples "
+          f"{[int(main[r].resampled.sum()) for r in rids]}; peak {log.peak_blocks()} pages (dense "
+          f"{dense}); launches {json.dumps(launches)}", flush=True)
+
+    # -- the delta run, bit-identical; its tick MOE_ATTN_AT's paged attention
+    # and routing, and the token store's last cow_write, clone_chain and
+    # final cow_gather, kept ------------------------------------------------
+    tap = AttentionTap(engine_lib.paged_attention)
+    captured, route = {}, moe_lib.route
+
+    def arm(s):
+        tap.armed = s.tick == MOE_ATTN_AT
+
+    def capture_route(router, tokens, c):
+        r = route(router, tokens, c)
+        if tap.armed:
+            captured.setdefault("dropped", []).append(int((~r.keep).sum()))
+            captured["pairs_per_layer"] = r.keep.numel()
+            captured["cap"] = r.cap
+        return r
+
+    sched = schedule([request(i) for i in range(SMC_REQUESTS)], delta_cow=True, on_boundary=arm)
+    dispatch.reset_launch_counts()
+    engine_lib.paged_attention, moe_lib.route = tap, capture_route
+    try:
+        with token_store_calls(captured):
+            res = sched.run()
+    finally:
+        engine_lib.paged_attention, moe_lib.route = tap.attention, route
+        tap.armed = False
+    torch.cuda.synchronize()
+    delta_launches = dispatch.launch_counts()
+    require(delta_launches["paged_attention_delta"] > 0,
+            f"moe: kernel paged_attention_delta launched ({delta_launches['paged_attention_delta']})")
+    for rid in rids:
+        require(same(res[rid], main[rid]), f"moe {rid}: kv_delta_cow=True bit-identical")
+    delta_calls = tap.calls
+    dropped = captured.pop("dropped")
+    report["routing_at_tick"] = {
+        "tick": MOE_ATTN_AT, "layers": len(dropped), "pairs_per_layer": captured.pop("pairs_per_layer"),
+        "capacity": captured.pop("cap"), "dropped_pairs": sum(dropped), "dropped_per_layer": dropped}
+    print(f"moe smc: kv_delta_cow=True bit-identical; launches {json.dumps(delta_launches)}; "
+          f"routing at tick {MOE_ATTN_AT} (the keep mask): {json.dumps(report['routing_at_tick'])}",
+          flush=True)
+
+    # -- checkpoint at tick MOE_CHECKPOINT_AT, restore on a fresh engine;
+    # the restored run's tick MOE_ATTN_AT paged attention kept ---------------
+    saved = {}
+
+    class Kill(Exception):
+        pass
+
+    def checkpoint_at(s):
+        if s.tick == MOE_CHECKPOINT_AT and not saved:
+            saved["state"] = pickle.loads(pickle.dumps(s.checkpoint()))
+            raise Kill
+
+    sched = schedule([request(i) for i in range(SMC_REQUESTS)], on_boundary=checkpoint_at)
+    try:
+        sched.run()
+    except Kill:
+        pass
+    require("state" in saved, f"moe: a checkpoint at tick {MOE_CHECKPOINT_AT}")
+    del sched
+    restored = Scheduler.restore(
+        ServeEngine(lm, weights, ccfg, device=dev), saved.pop("state"), on_boundary=arm)
+    tap.calls = []
+    engine_lib.paged_attention = tap
+    try:
+        res = restored.run()
+    finally:
+        engine_lib.paged_attention = tap.attention
+        tap.armed = False
+    for rid in rids:
+        require(same(res[rid], main[rid]), f"moe {rid}: restored from the checkpoint at tick "
+                f"{MOE_CHECKPOINT_AT}, bit-exact")
+    whole_calls = tap.calls
+    del restored, res
+    print(f"moe smc: checkpoint at tick {MOE_CHECKPOINT_AT}, restore on a fresh engine: bit-exact",
+          flush=True)
+
+    # -- coupling, run and reported: each request alone, and a preemption ------
+    coupling = {}
+    for i, rid in enumerate(rids):
+        coupling[f"{rid}_alone_bit_exact"] = same(schedule([request(i)]).run()[rid], main[rid])
+
+    def preempt_once(s):
+        if s.tick == MOE_PREEMPT_AT and not s.stats.preemptions:
+            s.preempt(rids[-1])
+
+    sched = schedule([request(i) for i in range(SMC_REQUESTS)], on_boundary=preempt_once)
+    res = sched.run()
+    require(sched.stats.preemptions == 1, f"moe: one preemption at tick {MOE_PREEMPT_AT}")
+    for rid in rids:
+        coupling[f"{rid}_with_preemption_bit_exact"] = same(res[rid], main[rid])
+    del sched, res
+    report["coupling"] = coupling
+    print(f"moe smc coupling (reported, not required: capacity couples a step's rows): "
+          f"{json.dumps(coupling)}", flush=True)
+
+    # -- 3. the path's kernels against their plain versions --------------------
+    attention = {"paged_attention": attention_row(rate, whole_calls, cfg.n_heads, "moe paged_attention"),
+                 "paged_attention_delta": attention_row(rate, delta_calls, cfg.n_heads,
+                                                        "moe paged_attention_delta")}
+    del whole_calls, delta_calls
+    store_calls = check_token_store_calls(captured, "moe")
+    print(f"moe smc: tick {MOE_ATTN_AT}'s paged attention (layers 0 and {cfg.n_layers - 1}) against the "
+          f"plain version, limit 1e-2: {json.dumps(attention)}; {store_calls} equal their plain "
+          f"versions", flush=True)
+    report["deepseek_smc"] = {
+        "requests": SMC_REQUESTS, "particles": SMC_PARTICLES, "rows": SMC_SLOTS,
+        "prompt_len": SMC_PROMPT_LEN, "steps": MOE_SMC_STEPS, "ticks": ticks,
+        "wall_ms_per_tick_median": median_ms, "wall_ms_per_tick_min": min(walls) * 1e3, "wall_s": wall_s,
+        "launches_per_tick": {op: launches[op] / ticks for op in SMC_OPS},
+        "launches": {**{op: launches[op] for op in SMC_OPS},
+                     "paged_attention_delta": delta_launches["paged_attention_delta"]},
+        "resamples": {rid: int(main[rid].resampled.sum()) for rid in rids},
+        "peak_pages": log.peak_blocks(), "dense_pages": dense,
+        "paged_attention_against_plain": attention}
+    del weights, main, captured
+    torch.cuda.empty_cache()
+
+    # -- 5. the serve CLI at full width ----------------------------------------
+    def cli(arch):
+        dispatch.reset_launch_counts()
+        toks = serve_cli.main(["--arch", arch, "--full"])
+        torch.cuda.synchronize()
+        count = dispatch.launch_counts()["paged_attention"]
+        vocab = get_config(arch).padded_vocab
+        require(count > 0, f"serve --arch {arch} --full went through paged_attention")
+        require(toks.shape == (4, 33) and bool(((toks >= 0) & (toks < vocab)).all()),
+                f"serve --arch {arch} --full returns 4 continuations of 33 tokens ({tuple(toks.shape)})")
+        torch.cuda.empty_cache()
+        return count
+
+    report["cli_paged_attention_launches"] = {MOE_ARCH: cli(MOE_ARCH)}
+
+    # -- musicgen-large: serve, the paged kernel at head dim 64, the CLI --------
+    acfg = get_config(AUDIO_ARCH)
+    alm = LanguageModel(acfg)
+    t = time.perf_counter()
+    aweights = draw_cast_params(alm, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    print(f"audio: {acfg.name} drawn and cast in {time.perf_counter() - t:.1f} s", flush=True)
+    prompts = torch.randint(0, acfg.vocab_size, (SERVE_PROMPTS, SERVE_PROMPT_LEN),
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 34), device=dev)
+    _, calls, audio_launches, report["musicgen_serve"] = serve_both(dev, alm, aweights, prompts, "audio")
+    attention["paged_attention_musicgen"] = attention_row(rate, calls, acfg.n_heads,
+                                                          "audio paged_attention")
+    print(f"audio: the last decode step's paged attention (layers 0 and {acfg.n_layers - 1}) against the "
+          f"plain version: {json.dumps(attention['paged_attention_musicgen'])}", flush=True)
+    del calls, aweights
+    torch.cuda.empty_cache()
+    report["cli_paged_attention_launches"][AUDIO_ARCH] = cli(AUDIO_ARCH)
+
+    # -- the smoke configs on the card against the CPU path ----------------------
+    report["smoke_card_against_cpu"] = {}
+    for arch in (MOE_ARCH, AUDIO_ARCH):
+        readings, _ = card_against_cpu(dev, arch)
+        report["smoke_card_against_cpu"][arch] = readings
+    print(f"family smoke runs: card equals the CPU path (tables, refcounts, lengths; routing where "
+          f"the top-k gap exceeds {ROUTE_GAP}); logits within {LOGIT_TOL} x the step's largest logit: "
+          f"{json.dumps(report['smoke_card_against_cpu'])}", flush=True)
+
+    counts = {"paged_attention": {"deepseek_serve": serve_launches["paged_attention"],
+                                  "deepseek_smc": launches["paged_attention"],
+                                  "musicgen_serve": audio_launches["paged_attention"]},
+              "paged_attention_delta": {"deepseek_serve": serve_launches["paged_attention_delta"],
+                                        "deepseek_smc": delta_launches["paged_attention_delta"],
+                                        "musicgen_serve": audio_launches["paged_attention_delta"]},
+              **{op: {"deepseek_smc": launches[op]} for op in ("clone_chain", "cow_write", "cow_gather")}}
+    shapes = {"paged_attention": {"deepseek_smc_tick": attention["paged_attention"],
+                                  "musicgen_serve_step": attention["paged_attention_musicgen"]},
+              "paged_attention_delta": {"deepseek_smc_tick": attention["paged_attention_delta"]}}
+    for row in rows:
+        if row["name"] in counts:
+            row["family_launches"] = counts[row["name"]]
+        if row["name"] in shapes:
+            row["family_shapes"] = shapes[row["name"]]
+    report["phase_s"] = time.perf_counter() - phase_t0
+    print(json.dumps({"families": report}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2352,6 +2842,10 @@ def main() -> int:
 
     # -- 14. the paper's five programs at the paper's N and T -------------
     programs_phase(dev, rows)
+    torch.cuda.empty_cache()
+
+    # -- 15. the moe and audio families at full width ---------------------
+    family_phase(dev, rate, rows)
     torch.cuda.empty_cache()
     rows.insert(1, delta_row)
     rows[5:5] = registry_rows[:1]

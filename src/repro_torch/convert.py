@@ -150,7 +150,7 @@ def program_params_from_numpy(name: str, params: Any, device: torch.device | str
         if params is not None:
             raise ValueError(f"{name} takes no parameters")
         return None
-    want = mod.default_params()
+    want = mod.default_params("cpu")
     if tuple(params._fields) != tuple(want._fields):
         raise ValueError(f"{name}: fields {params._fields}, the port expects {want._fields}")
     out = []

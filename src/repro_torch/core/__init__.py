@@ -1,3 +1,5 @@
-"""Core platform: copy-mode config, refcounted block pool, particle store."""
+"""Core platform: copy-mode config, the object-graph runtime, refcounted
+block pool, particle store."""
 
 from repro_torch.core.config import ALL_MODES, CopyMode
+from repro_torch.core.graph import Runtime

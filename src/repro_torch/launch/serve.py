@@ -1,8 +1,11 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
 Runs the COW-paged serving engine with batched requests: the reduced
-(smoke) config by default, the full config with ``--full``.  Weights are
-random, drawn from a seeded ``torch.Generator`` by the reference's law.
+(smoke) config by default, the full config with ``--full``, for any
+architecture of :mod:`repro_torch.configs` (``--arch deepseek_moe_16b``,
+``musicgen_large``, ...).  Weights are random, drawn from a seeded
+``torch.Generator`` by the reference's law, each layer matrix cast to the
+activation dtype as it is drawn.
 ``--smc`` switches to population-based decoding (N particles,
 zero-copy resampling forks) through ``SMCDecoder``.  Runs on the card by
 default; ``--device cpu`` runs the plain PyTorch path on the host.
@@ -37,7 +40,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels.dispatch import resolve_device
     from repro_torch.models.model import LanguageModel
-    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.engine import ServeEngine, draw_cast_params
     from repro_torch.serving.kv_cache import KVCacheConfig
 
     dev = resolve_device(args.device)
@@ -45,7 +48,9 @@ def main(argv: Optional[Sequence[str]] = None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     lm = LanguageModel(cfg)
-    params = lm.init(gen, device=dev)
+    # Each layer matrix cast as soon as it is drawn: a model too large to
+    # hold in float32 and in the activation dtype at once still fits.
+    params = draw_cast_params(lm, gen, device=dev)
     max_len = args.prompt_len + args.steps + 16
 
     if args.smc:

@@ -1,8 +1,9 @@
 """Model configuration covering all assigned architecture families.
 
 A copy of ``repro.models.config`` (framework-free): the port imports
-nothing of the JAX package.  The port builds only the ``dense`` family
-so far; the other families' fields are kept so configs read the same.
+nothing of the JAX package.  The port builds the ``dense``, ``audio`` and
+``moe`` families so far; the other families' fields are kept so configs
+read the same.
 """
 
 from __future__ import annotations

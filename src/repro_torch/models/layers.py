@@ -59,7 +59,10 @@ class ParamBuilder:
     ``layers > 0`` gives every leaf a leading layer axis of that size
     (the stacked ``blocks`` tree that the layer loop indexes); the law is
     that of the per-layer shape.  With ``generator=None`` only the
-    shapes are recorded (``specs``), nothing is allocated.
+    shapes are recorded (``specs``), nothing is allocated.  ``finish``,
+    if given, maps each leaf as soon as it is drawn (``finish(path,
+    value)``), before the next one is: a cast there keeps one leaf in
+    the parameter dtype at a time.
     """
 
     def __init__(
@@ -69,11 +72,13 @@ class ParamBuilder:
         *,
         device: torch.device | str = "cpu",
         layers: int = 0,
+        finish: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
     ):
         self.gen = generator
         self.dtype = torch_dtype(param_dtype)
         self.device = torch.device(device)
         self.layers = layers
+        self.finish = finish
         self.params: Params = {}
         self.specs: Dict[str, Tuple[int, ...]] = {}
 
@@ -98,6 +103,8 @@ class ParamBuilder:
             value.mul_(std)
         else:
             raise ValueError(init)
+        if self.finish is not None:
+            value = self.finish(path, value)
         _set(self.params, path, value)
         return value
 
@@ -124,12 +131,13 @@ def stack_layer_params(
     param_dtype: str,
     *,
     device: torch.device | str = "cpu",
+    finish: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
 ) -> ParamBuilder:
     """Initialise a layer stack: every leaf gets a leading layer axis of
     size ``n_layers`` (the reference vmaps one init over split keys; the
     law per layer is the same).  Returns the builder (``.params``,
     ``.specs``)."""
-    b = ParamBuilder(generator, param_dtype, device=device, layers=n_layers)
+    b = ParamBuilder(generator, param_dtype, device=device, layers=n_layers, finish=finish)
     init_fn(b)
     return b
 

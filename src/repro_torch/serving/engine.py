@@ -11,8 +11,9 @@ delta pages through the pool's ``parent``/``dirty`` leaves in place.
 ``prefill`` runs the training forward over the prompts and bulk-writes
 their K/V pages, after which ``fork`` replicates a prompt across a
 population for O(1).  Runs are eager: the reference's ``jit`` and layer
-``scan`` become a Python loop over the stacked layer weights.  Only the
-``dense`` family is ported.
+``scan`` become a Python loop over the stacked layer weights.  The
+families are the reference's paged ones: ``dense``, ``audio`` and
+``moe`` (deepseek's dense layer 0 included).
 """
 
 from __future__ import annotations
@@ -26,35 +27,59 @@ from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Params, embed, mlp, rms_norm, torch_dtype, unembed
-from repro_torch.models.model import LanguageModel, layer_params
+from repro_torch.models.layers import Params, embed, rms_norm, torch_dtype, unembed
+from repro_torch.models.model import LanguageModel, feed_forward, iter_layers
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.kv_cache import KVCacheConfig, PagedKVCache
 
-SUPPORTED_FAMILIES = ("dense",)
-# Families the reference serves from the paged cache, and where their port
-# is queued (ROADMAP.md queue 1).
-UNPORTED_FAMILIES = {"moe": "item 6 (models/moe.py)", "audio": "item 6 (the audio configs)"}
+SUPPORTED_FAMILIES = ("dense", "audio", "moe")
+
+
+def is_cast_leaf(path: str) -> bool:
+    """Whether the leaf at ``path`` (``"blocks/attn/wq"``) is one of the
+    layer matrices the engine casts to the activation dtype: every leaf of
+    ``blocks`` and ``block0`` but the norm scales and the MoE router,
+    whose logits the reference takes in float32 from its float32 weights
+    (a cast router would route otherwise)."""
+    parts = path.split("/")
+    return parts[0] in ("blocks", "block0") and parts[-1] not in ("scale", "router")
 
 
 def cast_matrices(params: Params, dtype: torch.dtype, device: torch.device) -> Params:
-    """The parameter tree on ``device`` with the layer matrices cast once
-    to ``dtype`` (every use casts them to the activation dtype anyway);
-    the embedding table and the norm scales stay in their own (float32)
-    type, as the reference's f32 unembedding and norms need."""
+    """The parameter tree on ``device`` with the layer matrices
+    (:func:`is_cast_leaf`) cast once to ``dtype`` (every use casts them to
+    the activation dtype anyway); the embedding table, the norm scales and
+    the router stay in their own (float32) type, as the reference's f32
+    unembedding, norms and routing need."""
 
-    def walk(tree: Params, in_blocks: bool) -> Params:
+    def walk(tree: Params, prefix: str) -> Params:
         out = {}
         for name, leaf in tree.items():
+            path = prefix + name
             if isinstance(leaf, dict):
-                out[name] = walk(leaf, in_blocks or name == "blocks")
-            elif in_blocks and name != "scale":
+                out[name] = walk(leaf, path + "/")
+            elif is_cast_leaf(path):
                 out[name] = leaf.to(device=device, dtype=dtype)
             else:
                 out[name] = leaf.to(device)
         return out
 
-    return walk(params, False)
+    return walk(params, "")
+
+
+def draw_cast_params(
+    lm: LanguageModel, generator: torch.Generator, *, device: torch.device | str = "cuda"
+) -> Params:
+    """``cast_matrices(lm.init(generator), activation dtype)``, bit for
+    bit, drawn leaf by leaf on ``device`` with each layer matrix cast as
+    soon as it is drawn: the peak is the cast tree plus one float32 leaf,
+    not both whole trees (deepseek-moe-16b: ~33 GB and its 19.9 GB expert
+    leaf, against ~98 GB)."""
+    dtype = torch_dtype(lm.cfg.dtype)
+    return lm.init(
+        generator, device=device,
+        finish=lambda path, value: value.to(dtype) if is_cast_leaf(path) else value,
+    )
 
 
 class ServeEngine:
@@ -71,11 +96,6 @@ class ServeEngine:
         device: torch.device | str = "cuda",
     ):
         cfg = lm.cfg
-        if cfg.family in UNPORTED_FAMILIES:
-            raise NotImplementedError(
-                f"paged serving for family {cfg.family!r} is not ported yet "
-                f"(ROADMAP.md queue 1, {UNPORTED_FAMILIES[cfg.family]})"
-            )
         if cfg.family not in SUPPORTED_FAMILIES:
             raise NotImplementedError(
                 f"paged serving for family {cfg.family!r} uses the dense-cache "
@@ -195,10 +215,9 @@ def _decode_step(
     x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))  # [S, 1, D]
     cache, bid, pos = kvc.ensure_writable(ccfg, cache, mask)
     lengths_incl = cache.lengths + mask.to(torch.int32)  # include the new token
-    for layer in range(cfg.n_layers):
-        p = layer_params(params["blocks"], layer)
+    for layer, p in enumerate(iter_layers(params, cfg)):
         x, cache = _attn_block(cfg, ccfg, p, x, cache, bid, pos, layer, mask, lengths_incl)
-        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"]["scale"], cfg.norm_eps), cfg.act)
+        x = x + feed_forward(p, rms_norm(x, p["ln2"]["scale"], cfg.norm_eps), cfg)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(params.get("unembed", params["embed"]), x)[:, 0]
     return logits, kvc.advance(cache, mask)
@@ -221,14 +240,13 @@ def _prefill(
     x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     k_all, v_all = [], []
-    for layer in range(cfg.n_layers):
-        p = layer_params(params["blocks"], layer)
+    for p in iter_layers(params, cfg):
         hn = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
         _, k_new, v_new = attn_lib.qkv_proj(p["attn"], hn, cfg)
         k_all.append(attn_lib.apply_rope(k_new, positions, cfg.rope_theta))
         v_all.append(v_new)
         x = x + attn_lib.attention_train(p["attn"], hn, cfg, positions)
-        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"]["scale"], cfg.norm_eps), cfg.act)
+        x = x + feed_forward(p, rms_norm(x, p["ln2"]["scale"], cfg.norm_eps), cfg)
     # Only the last position's logits are returned: unembed it alone.
     x = rms_norm(x[:, -1:], params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(params.get("unembed", params["embed"]), x)[:, -1]

@@ -38,6 +38,7 @@ from repro_torch import random as rnd
 from repro_torch.core import store as store_lib
 from repro_torch.core.config import CopyMode
 from repro_torch.core.store import ParticleStore, StoreConfig
+from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.smc.filters import SSMDef
 
 NAME = "pcfg"
@@ -91,9 +92,12 @@ class PCFGState(NamedTuple):
     sp: torch.Tensor  # [N] int32 stack pointer (depth)
 
 
-def default_params(device: torch.device | str = "cpu") -> PCFGParams:
+def default_params(device: torch.device | str = "cuda") -> PCFGParams:
+    """The reference's grammar, as float32 tensors on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     return PCFGParams(
-        *(torch.tensor(v, dtype=torch.float32, device=device) for v in (_EMIT_P, _EMIT, _LEFT, _RIGHT))
+        *(torch.tensor(v, dtype=torch.float32, device=dev) for v in (_EMIT_P, _EMIT, _LEFT, _RIGHT))
     )
 
 
@@ -184,14 +188,14 @@ def build(mode: CopyMode = CopyMode.LAZY_SR) -> Tuple[SSMDef, PCFGParams]:
         record_shape=(2,),
         clone_state=clone_state,
         lookahead=lookahead,
-    ), default_params()
+    ), default_params("cpu")
 
 
 def rollout(seed: int, t_steps: int) -> np.ndarray:
     """A terminal string ``[T]`` (float32) sampled from the grammar on the
     host by numpy's generator seeded with ``seed``; the reference's
     ``gen_data`` is this rollout at the seed it draws from its key."""
-    emit_p, emit, left, right = (x.numpy() for x in default_params())
+    emit_p, emit, left, right = (x.numpy() for x in default_params("cpu"))
     rng = np.random.default_rng(seed)
     out = []
     while len(out) < t_steps:

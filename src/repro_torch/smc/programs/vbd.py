@@ -22,6 +22,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch import random as rnd
+from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.smc.filters import SSMDef
 
 NAME = "vbd"
@@ -45,10 +46,12 @@ class VBDParams(NamedTuple):
     rho: torch.Tensor  # reporting fraction
 
 
-def default_params(device: torch.device | str = "cpu") -> VBDParams:
-    """The reference's constants, as float32 scalars on ``device``."""
+def default_params(device: torch.device | str = "cuda") -> VBDParams:
+    """The reference's constants, as float32 scalars on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     values = (0.35, 0.30, 1 / 5.0, 1 / 6.0, 1 / 10.0, 0.35)
-    return VBDParams(*(torch.tensor(v, dtype=torch.float32, device=device) for v in values))
+    return VBDParams(*(torch.tensor(v, dtype=torch.float32, device=dev) for v in values))
 
 
 def _binom_approx(gen: Any, n: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -93,7 +96,7 @@ def build() -> Tuple[SSMDef, VBDParams]:
 
     return SSMDef(
         init=init, step=step, record_shape=(7,), set_reference=set_reference
-    ), default_params()
+    ), default_params("cpu")
 
 
 def gen_data(gen: Any, t_steps: int) -> torch.Tensor:

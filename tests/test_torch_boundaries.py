@@ -154,6 +154,21 @@ def test_crosscheck_on_the_cpu():
     assert all(not e.oom for e in engines.values())
 
 
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "musicgen_large"])
+def test_crosscheck_of_the_moe_and_audio_smoke_on_the_cpu(arch):
+    """The same check on deepseek's and musicgen's smoke configs: the
+    routing is recorded and held (deepseek), no row is left out."""
+    readings, engines = card_against_cpu("cpu", arch)
+    vocab = cc.smoke_config(arch).padded_vocab
+    assert readings["worst_abs_diff"] == 0.0
+    assert readings["logits"] == (cc.PROMPTS + cc.STEPS * cc.ROWS) * vocab
+    if arch == "deepseek_moe_16b":
+        layers = cc.smoke_config(arch).n_layers - 1  # layer 0 is dense
+        rows = layers * (cc.PROMPTS * cc.PROMPT_LEN + cc.STEPS * cc.ROWS)
+        assert readings["routing_rows"] == rows and readings["rows_left_out"] == 0
+    assert all(not e.oom for e in engines.values())
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -678,6 +693,13 @@ class TestPagedAttentionOnCard:
         tables, refcounts and lengths; logits within ``LOGIT_TOL`` of the
         step's largest logit; delta on and off bit-identical on the card."""
         readings, _ = card_against_cpu(cuda_device)
+        assert readings["worst_diff_over_step_max"] <= LOGIT_TOL
+
+    @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "musicgen_large"])
+    def test_moe_and_audio_engines_match_cpu_path(self, cuda_device, arch):
+        """The same check on deepseek's smoke config (routing equal where
+        clear of ties) and musicgen's (G = 1, head dim 16)."""
+        readings, _ = card_against_cpu(cuda_device, arch)
         assert readings["worst_diff_over_step_max"] <= LOGIT_TOL
 
     def test_compact_moves_bf16_pages_exactly(self, cuda_device):

@@ -55,9 +55,9 @@ def test_configs_match_the_reference():
     assert configs.smoke_config("starcoder2_3b") == SMOKE
     assert CONFIG.scaled(n_layers=2).n_layers == 2
     with pytest.raises(NotImplementedError, match="queue 1"):
-        configs.get_config("qwen25_32b")
+        configs.get_config("mamba2_130m")
     with pytest.raises(NotImplementedError, match="item 6"):
-        LanguageModel(CONFIG.scaled(family="moe"))
+        LanguageModel(CONFIG.scaled(family="ssm"))
 
 
 def test_rms_norm_gelu_and_rope():

@@ -424,11 +424,24 @@ def test_gen_data_shapes_and_device(name):
 
 def test_pcfg_default_params_equal_the_reference_bit_for_bit():
     want = numpy_tree(jpcfg.default_params())
-    got = pcfg.default_params()
+    got = pcfg.default_params("cpu")
     for field in pcfg.PCFGParams._fields:
         a, b = getattr(want, field), getattr(got, field).numpy()
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.parametrize("name", ["pcfg", "vbd"])
+def test_default_params_run_on_the_card_unless_asked_for_the_cpu(name):
+    """An entry point: the card by default (raising without one), the CPU
+    only when the caller asks."""
+    mod = PROBLEMS[name]
+    assert all(t.device == CPU for t in mod.default_params("cpu"))
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in mod.default_params())
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.default_params()
 
 
 def test_pcfg_rollout_equals_the_reference_gen_data():

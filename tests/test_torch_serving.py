@@ -351,9 +351,9 @@ def test_engine_device_and_family_policy(weights):
             ServeEngine(lm, params, ccfg)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tkv.create(tkv.KVCacheConfig(1, 1, 2))
-    moe = types.SimpleNamespace(cfg=SMOKE.scaled(family="moe"))  # no port builds one yet
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        ServeEngine(moe, params, ccfg, device="cpu")
+    ssm = types.SimpleNamespace(cfg=SMOKE.scaled(family="ssm"))  # no port builds one yet
+    with pytest.raises(NotImplementedError, match="dense-cache"):
+        ServeEngine(ssm, params, ccfg, device="cpu")
 
 
 def test_serve_entry_point_on_the_cpu(capsys):
