@@ -92,8 +92,9 @@ Phases (any failed check raises, and the script exits non-zero):
     per counted launch.  Then ``cow_write_delta`` against its plain
     version on a mid-block append's own routing: exact; a dump row dirty
     on entry zero after; one kernel record a call (traced).
-11. The three kernels no path of the system calls yet, reached through
-    the registry at the widths of the models the repository configures,
+11. ``resample``, ``flash_attention`` and ``ssd_scan`` reached through
+    the registry at the widths of the models the repository configures
+    (flash and the SSD scan have their model path in phase 16),
     with the counters set to 0 just before and read just after:
     ``resample`` (N = 65,536, phase 2's final LAZY weights, and the
     planted CDFs of ``kernels/resample/ref.py``; exact, one launch and one
@@ -163,7 +164,7 @@ Phases (any failed check raises, and the script exits non-zero):
     paper's N and T, each in EAGER, LAZY and LAZY_SR from one generator
     seed on data from its own ``gen_data``, with the counters set to 0
     before each program and read after it: RBPF (N = 2,048, T = 500),
-    PCFG (N = 16,384, T = 3,262, the auxiliary filter with its lookahead
+    PCFG (N = 16,384, T = 2,000 of the paper's 3,262, the auxiliary filter with its lookahead
     and its stack in a second store), VBD (N = 4,096, T = 182, particle
     Gibbs, 3 iterations), MOT (N = 4,096, T = 100), CRBD (N = 5,000,
     T = 173, the alive filter with ``max_retries=6``).  Checks:
@@ -218,9 +219,43 @@ Phases (any failed check raises, and the script exits non-zero):
     Prints ``{"families": ...}``; the launches and the new shapes' times
     go into the ``kernels`` rows as ``family_launches`` and
     ``family_shapes``.
+16. The dense-cache families at full width, on ``LanguageModel``'s
+    ``prefill`` and ``decode_step``, one model at a time, each drawn on
+    the card leaf by leaf with its matrices cast to bf16 as drawn (the
+    norm scales and the SSM's ``a_log``, ``dt_bias``, ``d_skip`` stay
+    float32), random weights from the seed, the peak memory printed:
+    mamba2-130m (24 layers, batch 4, prompt 1,984, 64 greedy steps),
+    zamba2-7b (81 SSM layers, the shared block 13 times; 4, 960, 64),
+    gemma3-12b (48 layers, window 1,024; 2, 2,016, 32: the rings wrap)
+    and llama-3.2-vision-90b cut to 20 layers (4 units; 2, 480, 32, with
+    1,024 image tokens of normal features from the seed).  With the
+    counters set to 0 before each model and read after its prefill and
+    after its teacher-forced forward (prompt plus steps): ``flash_attention``
+    and ``ssd_scan`` launched exactly as predicted (a flash launch per
+    self-attention layer or shared-block invocation, a scan per SSM layer,
+    each pass); finite logits and caches, ``position`` = prompt + steps;
+    each decode step against the forward at its position (the worst gap
+    in units of the step's largest |logit|, and the greedy agreement:
+    recorded in bf16, no limit); the prefill's first and last ``flash``
+    and ``ssd_scan`` calls against their plain versions (flash bf16: atol
+    2e-2 and the rounding bound; SSD: rtol/atol 2e-4), with their times,
+    the plain versions', SDPA's and the bound.  Then the four smoke
+    configs on the card against the CPU path
+    (``crosscheck.dense_cache_card_against_cpu``, f32: logits within 1e-5
+    of the step's largest, the SSM families within 2e-5), and for mamba2
+    and zamba2 each of the crosscheck's planted scan faults (B and C
+    rounded to bf16; the later half of the outputs 1e-4 off) reading
+    above that limit on the card.
+    Prints ``{"dense_cache": ...}``; the ``flash_attention`` and
+    ``ssd_scan`` rows take this phase's launches as ``launches`` (the
+    registry's as ``registry_launches``) and its shapes' times as
+    ``dense_cache_shapes``.
+
+Phase 14 runs PCFG at T = 2,000 (``PROGRAM_T``; the paper's 3,262 is
+its ``PAPER_T``), so the script keeps within its time budget.
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
-``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"programs": ...}``, ``{"families": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
+``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"programs": ...}``, ``{"families": ...}``, ``{"dense_cache": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -229,6 +264,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import re
@@ -1608,17 +1644,15 @@ def registry_phase(dev, rate, logw):
     from repro_torch import random as rnd
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.clone_chain import fixed_order_cumsum
-    from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.clone_chain.ref import comb_positions
     from repro_torch.kernels.resample import (
         PLANTED, planted_cdfs, resample_systematic_kernel, resample_systematic_ref,
     )
-    from repro_torch.kernels.ssd_scan import ssd_scan_ref
 
     gen, flash_in, ssd_in = registry_inputs(dev)
     n = logw.shape[0]
     floor_buf = torch.zeros(1, dtype=torch.int32, device=dev)  # the launch floor's 4 bytes
-    sb, ss, sh, sp, sn, sq = SSD_SHAPE
+    sq = SSD_SHAPE[-1]
 
     # -- the path: each op once through the registry --------------------------
     dispatch.reset_launch_counts()
@@ -1681,98 +1715,56 @@ def registry_phase(dev, rate, logw):
     # of the plain version in f32 (flash_rounding_bound), a check that
     # each planted fault must fail.
     shapes = []
-    for name, (q, k, v), w in flash_in:
-        b, s, h, d = q.shape
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        got = flash(q, k, v, window=w)
-        want = flash_attention_ref(qt, kt, vt, window=w).transpose(1, 2)
-        err = (got.float() - want.float()).abs().max().item()
-        require(bool(torch.isfinite(got).all()) and got.shape == q.shape, f"flash {name}: finite output")
-        require(err <= 2e-2, f"flash_attention {name}: within atol 2e-2 of its plain version ({err})")
-        want32, bound = flash_rounding_bound(qt, kt, vt, w)
-
-        def ratio_of(out):
-            return ((out.transpose(1, 2).float() - want32).abs() / bound).max().item()
-
-        ratio = ratio_of(got)
-        require(ratio <= FLASH_BOUND_LIMIT, f"flash_attention {name}: within its rounding bound ({ratio})")
-        faults = {fault: ratio_of(out) for fault, out in planted_faults(qt, kt, vt, w).items()}
-        require(min(faults.values()) > FLASH_BOUND_LIMIT,
-                f"flash_attention {name}: the check rejects each planted fault {faults}")
-        del want32, bound
-        moved = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-        flops = 4 * d * attention_pairs(s, w) * b * h
-        bytes_ms, ops_ms = moved / rate * 1e3, flops / BF16_RATE * 1e3
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        if w == 0:
-            library_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-        else:  # the causal-and-window mask, built outside the timed region
-            i = torch.arange(s, device=dev)
-            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
-            library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
-            del mask
-        case = {
-            "shape": name, "max_abs_err": err, "rounding_ratio": ratio, "fault_ratios": faults,
-            "ms": device_ms(lambda: flash(q, k, v, window=w)),
-            "plain_ms": device_ms(lambda: flash_attention_ref(qt, kt, vt, window=w), reps=5, warmup=1),
-            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms,
-        }
-        case["tflops"] = flops / case["ms"] / 1e9
+    for name, qkv, w in flash_in:
+        case = {"case": name, **flash_case(rate, (qkv, {"window": w}), f"flash_attention {name}",
+                                           rtol=0.0, faults=True)}
         shapes.append(case)
-        print(f"kernel flash_attention {name}: max |kernel - plain| {err!r}, rounding ratio {ratio!r} "
-              f"(planted faults {json.dumps(faults)}); {case['ms']:.4f} ms "
-              f"({case['tflops']:.2f} TFLOP/s), plain {case['plain_ms']:.4f} ms, SDPA "
-              f"{library_ms:.4f} ms, bound "
-              f"{case['bound_ms']:.4f} ms ({case['bound_by']}; {flops} flops, {moved} bytes)", flush=True)
-        del got, want
+        print(f"kernel flash_attention {name}: max |kernel - plain| {case['max_abs_err']!r}, rounding ratio "
+              f"{case['rounding_ratio']!r} (planted faults {json.dumps(case['fault_ratios'])}); "
+              f"{case['ms']:.4f} ms ({case['tflops']:.2f} TFLOP/s), plain {case['plain_ms']:.4f} ms, SDPA "
+              f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}; "
+              f"{case['flops']} flops, {case['bytes']} bytes)", flush=True)
     head = shapes[1]  # starcoder2-3b at S = 4,096: the largest, with a library call
     rows.append({
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:94",
         "launches": launches["flash_attention"], "max_abs_err": max(c["max_abs_err"] for c in shapes),
         **{key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "headline_shape": head["shape"], "shapes": shapes,
+        "headline_shape": head["case"], "shapes": shapes,
     })
     torch.cuda.empty_cache()
 
     # ssd_scan at mamba2-130m's widths (f32, rtol/atol 2e-4).
     ssd = dispatch.get_op("ssd_scan")
-    y, hf = ssd(*ssd_in, chunk=sq)
-    yr, hr = ssd_scan_ref(*ssd_in, chunk=sq)
-    for got, want, what in ((y, yr, "y"), (hf, hr, "final state")):
-        require(bool(torch.isfinite(got).all()), f"ssd_scan {what}: finite")
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4, msg=f"ssd_scan {what} vs plain")
-    err = max((y - yr).abs().max().item(), (hf - hr).abs().max().item())
-    nc = ss // sq
-    flops = 2 * sb * sh * nc * (sq * (sq + 1) // 2 * (sn + sp) + 2 * sq * sp * sn)
-    moved = 4 * (sum(t.numel() for t in ssd_in) + y.numel() + hf.numel())
-    bytes_ms, ops_ms = moved / rate * 1e3, flops / TF32_RATE * 1e3
+    case = ssd_case(rate, (ssd_in, {"chunk": sq}), "ssd_scan")
     row = {
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:92", "launches": launches["ssd_scan"],
-        "max_abs_err": err, "ms": device_ms(lambda: ssd(*ssd_in, chunk=sq)),
-        "plain_ms": device_ms(lambda: ssd_scan_ref(*ssd_in, chunk=sq), reps=5, warmup=1),
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        **{key: case[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
     rows.append(row)
+    y, hf = ssd(*ssd_in, chunk=sq)
     y2, hf2 = ssd(*ssd_in, chunk=sq)
     require(torch.equal(y, y2) and torch.equal(hf, hf2), "ssd_scan: a repeat call is bit-equal")
     # Its two launches apart, traced (the chunk-parallel kernel, then the pass).
     per_launch = traced_per_call(lambda: ssd(*ssd_in, chunk=sq), 5)
-    print(f"kernel ssd_scan: max |kernel - plain| {err!r} (y up to {yr.abs().max().item():.2f}), "
+    print(f"kernel ssd_scan: max |kernel - plain| {row['max_abs_err']!r} (y up to {case['largest_y']:.2f}), "
           f"a repeat call bit-equal; {row['ms']:.4f} ms on the device ({EARLIER_MS['ssd_scan']} "
           f"before the redesign), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}; {flops} flops, {moved} bytes); per launch, traced: "
+          f"({row['bound_by']}; {case['flops']} flops, {case['bytes']} bytes); per launch, traced: "
           f"{json.dumps(per_launch)}", flush=True)
     return rows
 
 
-# Phase 14: the paper's five programs (Section 4) at the paper's N and T.
+# Phase 14: the paper's five programs (Section 4) at the paper's N and T
+# (PCFG's T cut, PROGRAM_T).
 # The small card-against-CPU runs' sizes, and the ops each program's path
 # must launch.
 PROGRAMS_SMALL = (64, 16)
+# T where a program runs shorter than the paper's PAPER_T: PCFG's lazy
+# runs took ~500 s of the script at the paper's 3,262, and phase 16's
+# models need the time.
+PROGRAM_T = {"pcfg": 2000}
 # Stacks in the masked write_at check at depth MAX_DEPTH - 1.
 STACK_CHECK_ROWS = 1024
 PROGRAM_OPS = {
@@ -1838,6 +1830,7 @@ def with_ancestry(ssm, t_steps: int, tree_map):
 
 def programs_phase(dev, rows) -> None:
     """Phase 14 (module docstring): each program at its PAPER_N and PAPER_T
+    (PCFG at PROGRAM_T's)
     in EAGER, LAZY and LAZY_SR, its kernels counted from 0, its results
     checked; the small card-against-CPU runs; PCFG's masked ``write_at``,
     stack clone and VBD's ``materialize`` against their plain versions on
@@ -1899,7 +1892,7 @@ def programs_phase(dev, rows) -> None:
 
     report, totals = {}, {}
     for name, mod in PROBLEMS.items():
-        n, t = mod.PAPER_N, mod.PAPER_T
+        n, t = mod.PAPER_N, PROGRAM_T.get(name, mod.PAPER_T)
         iters = vbd.PG_ITERS if mod.METHOD == "pg" else 1
         obs = mod.gen_data(rnd.generator(SEED, dev), t)
         results, walls, gen_ms = {}, {}, []
@@ -1963,7 +1956,7 @@ def programs_phase(dev, rows) -> None:
             require(not bool(res.oom), f"{name} {mode.value}: oom is False")
         dense_blocks = n * -(-t // 4)
         peaks = {m.value: peak(r) for m, (_, r) in results.items()}
-        entry = {"N": n, "T": t, "method": mod.METHOD, "iterations": iters,
+        entry = {"N": n, "T": t, "paper_T": mod.PAPER_T, "method": mod.METHOD, "iterations": iters,
                  "wall_s": {m.value: w for m, w in walls.items()},
                  "median_wall_ms_per_generation": float(np.median(gen_ms)),
                  "generations_timed": len(gen_ms),
@@ -2538,6 +2531,311 @@ def family_phase(dev, rate, rows) -> None:
     print(json.dumps({"families": report}), flush=True)
 
 
+# Phase 16: the dense-cache families at full width.  Each model's
+# (arch, layers kept (None: all), batch, prompt, greedy steps); prompt plus
+# steps is the teacher-forced length of the forward the steps are held to.
+# The SSM models' lengths are multiples of 64, as the card's SSD scan
+# takes them (chunk 64).
+DENSE_CELLS = (
+    ("mamba2_130m", None, 4, 1984, 64),
+    ("zamba2_7b", None, 4, 960, 64),
+    ("gemma3_12b", None, 2, 2016, 32),
+    ("llama32_vision_90b", 20, 2, 480, 32),  # 20 of 100 layers: ~43 GB in bf16
+)
+# mamba2-130m once more in float32 activations and weights: the same
+# decode-against-forward reading without bf16 rounding, which tells the
+# rounding's share of the bf16 gaps from a fault's.
+F32_CONTROL = "mamba2_130m"
+DENSE_OPS = ("flash_attention", "ssd_scan")
+
+
+class KernelTap:
+    """Stands in for a model module's name for a kernel wrapper: while
+    ``armed``, keeps the first and the latest call's inputs (cloned).  The
+    wrapper it calls counts the launches."""
+
+    def __init__(self, fn):
+        self.fn, self.armed, self.calls = fn, False, []
+
+    def __call__(self, *args, **kw):
+        if self.armed:
+            self.calls.append(([a.clone() if torch.is_tensor(a) else a for a in args], dict(kw)))
+            del self.calls[1:-1]
+        return self.fn(*args, **kw)
+
+
+def predicted_launches(cfg) -> dict:
+    """Kernel launches of one prefill (or forward) pass: a flash launch per
+    self-attention layer (hybrid: per shared-block invocation), an
+    ssd_scan launch per SSM layer."""
+    if cfg.family == "ssm":
+        attn = 0
+    elif cfg.family == "hybrid":
+        attn = cfg.n_layers // cfg.attn_every
+    else:
+        attn = cfg.n_layers
+    return {"flash_attention": attn, "ssd_scan": cfg.n_layers if cfg.uses_ssm else 0}
+
+
+def flash_case(rate, call, what, rtol=2e-2, faults=False) -> dict:
+    """A flash call against its plain version (bf16: within atol 2e-2 plus
+    ``rtol`` of the plain value, and each element within FLASH_BOUND_LIMIT
+    of its rounding bound; with ``faults``, a check that each planted fault
+    must fail), then its time, the plain version's, SDPA's and the bound."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    (q, k, v), kw = call
+    w = kw.get("window", 0)
+    b, s, h, d = q.shape
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = flash_attention(q, k, v, window=w)
+    want = flash_attention_ref(qt, kt, vt, window=w).transpose(1, 2).float()
+    diff = (got.float() - want).abs()
+    err, worst = diff.max().item(), (diff / (2e-2 + rtol * want.abs())).max().item()
+    require(bool(torch.isfinite(got).all()) and got.shape == q.shape, f"{what}: finite output")
+    # Phase 16 holds it at atol and rtol 2e-2, as the cuda tests do
+    # (check_flash): the path's outputs reach |8|, where one bf16 step
+    # (2^-5) passes an atol alone.  Phase 11's random inputs keep the atol
+    # alone.
+    require(worst <= 1.0, f"{what}: within atol 2e-2, rtol {rtol} of its plain version ({err}, {worst} of the limit)")
+    del want, diff
+    want32, bound = flash_rounding_bound(qt, kt, vt, w)
+
+    def ratio_of(out):
+        return ((out.transpose(1, 2).float() - want32).abs() / bound).max().item()
+
+    ratio = ratio_of(got)
+    require(ratio <= FLASH_BOUND_LIMIT, f"{what}: within {FLASH_BOUND_LIMIT} of its rounding bound ({ratio})")
+    case = {"shape": [b, s, h, k.shape[2], d], "window": w, "max_abs_err": err, "tolerance_ratio": worst,
+            "rounding_ratio": ratio}
+    if faults:
+        case["fault_ratios"] = {fault: ratio_of(out) for fault, out in planted_faults(qt, kt, vt, w).items()}
+        require(min(case["fault_ratios"].values()) > FLASH_BOUND_LIMIT,
+                f"{what}: the check rejects each planted fault {case['fault_ratios']}")
+    del want32, bound, got
+    moved = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * d * attention_pairs(s, w) * b * h
+    bytes_ms, ops_ms = moved / rate * 1e3, flops / BF16_RATE * 1e3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if w == 0:
+        library_ms = device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    else:  # the causal-and-window mask, built outside the timed region
+        i = torch.arange(s, device=q.device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+        library_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        del mask
+    case.update({
+        "ms": device_ms(lambda: flash_attention(q, k, v, window=w)),
+        "plain_ms": device_ms(lambda: flash_attention_ref(qt, kt, vt, window=w), reps=3, warmup=1),
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms, "flops": flops, "bytes": moved,
+    })
+    case["tflops"] = flops / case["ms"] / 1e9
+    return case
+
+
+def ssd_case(rate, call, what) -> dict:
+    """A captured ssd_scan call against its plain version (rtol/atol 2e-4),
+    then its time, the plain version's and the bound."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+
+    args, kw = call
+    x, dt, a, bmat, cmat = args
+    chunk = kw["chunk"]
+    y, hf = ssd_scan(*args, chunk=chunk)
+    yr, hr = ssd_scan_ref(*args, chunk=chunk)
+    for got, want, part in ((y, yr, "y"), (hf, hr, "final state")):
+        require(bool(torch.isfinite(got).all()), f"{what} {part}: finite")
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4, msg=f"{what} {part} against its plain version")
+    err = max((y - yr).abs().max().item(), (hf - hr).abs().max().item())
+    largest_y = yr.abs().max().item()
+    del yr, hr
+    b, s, h, p = x.shape
+    n, q = bmat.shape[-1], min(chunk, s)
+    flops = 2 * b * h * (s // q) * (q * (q + 1) // 2 * (n + p) + 2 * q * p * n)
+    moved = 4 * (sum(t.numel() for t in args) + y.numel() + hf.numel())
+    bytes_ms, ops_ms = moved / rate * 1e3, flops / TF32_RATE * 1e3
+    return {"shape": [b, s, h, p, n], "chunk": q, "max_abs_err": err, "largest_y": largest_y,
+            "ms": device_ms(lambda: ssd_scan(*args, chunk=chunk)),
+            "plain_ms": device_ms(lambda: ssd_scan_ref(*args, chunk=chunk), reps=5, warmup=1),
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "flops": flops, "bytes": moved}
+
+
+def dense_cache_phase(dev, rate, rows) -> None:
+    """Phase 16 (module docstring): mamba2-130m, zamba2-7b, gemma3-12b and
+    llama-3.2-vision-90b (20 layers) at full width on the dense decode
+    caches, one at a time: prefill, greedy decode steps, the teacher-forced
+    forward they are held to, the launches against their prediction, each
+    kernel against its plain version on the path's own inputs; then the
+    smoke configs on the card against the CPU.  Adds the launches and the
+    times to the flash_attention and ssd_scan rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.model import DecodeCache, LanguageModel
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving.crosscheck import (
+        dense_cache_card_against_cpu, dense_cache_rejects_planted_faults, dense_tolerance,
+    )
+    from repro_torch.serving.engine import draw_cast_params
+
+    phase_t0 = time.perf_counter()
+    report, counts, shapes = {}, {op: {} for op in DENSE_OPS}, {op: {} for op in DENSE_OPS}
+    taps = {"flash_attention": KernelTap(attn_lib.flash_attention), "ssd_scan": KernelTap(ssm_lib.ssd_scan)}
+    control = [(cell, "float32") for cell in DENSE_CELLS if cell[0] == F32_CONTROL]
+    for (arch, layers, batch, prompt, steps), dtype in [(cell, None) for cell in DENSE_CELLS] + control:
+        t_model = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.scaled(n_layers=layers)
+        key = arch
+        if dtype is not None:
+            cfg, key = cfg.scaled(dtype=dtype), f"{arch}_{dtype}"
+        lm = LanguageModel(cfg)
+        total = prompt + steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before_gib = torch.cuda.memory_allocated() / 2**30
+        t = time.perf_counter()
+        weights = draw_cast_params(lm, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        torch.cuda.synchronize()
+        entry = {"layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch, "prompt": prompt, "steps": steps,
+                 "parameters": sum(int(np.prod(x)) for x in lm.param_specs().values()),
+                 "draw_s": time.perf_counter() - t, "before_gib": before_gib,
+                 "held_gib": torch.cuda.memory_allocated() / 2**30}
+        gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
+        img = None
+        if cfg.family == "vlm":
+            img = torch.randn((batch, cfg.n_img_tokens, cfg.d_model), generator=gen, device=dev)
+        per_pass = predicted_launches(cfg)
+
+        # -- prefill and greedy decode, the counters from 0 -----------------
+        dispatch.reset_launch_counts()
+        attn_lib.flash_attention, ssm_lib.ssd_scan = taps["flash_attention"], taps["ssd_scan"]
+        for tap in taps.values():
+            tap.armed, tap.calls = True, []
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = lm.prefill(weights, prompts, total, img)
+            torch.cuda.synchronize()
+            entry["prefill_s"] = time.perf_counter() - t
+        finally:
+            for tap in taps.values():
+                tap.armed = False
+            attn_lib.flash_attention, ssm_lib.ssd_scan = taps["flash_attention"].fn, taps["ssd_scan"].fn
+        after_prefill = dispatch.launch_counts()
+        require(bool(torch.isfinite(logits).all()) and logits.shape == (batch, prompt, cfg.padded_vocab),
+                f"{key}: finite prefill logits over the padded vocabulary")
+        last = logits[:, -1].clone()
+        del logits
+        tok = last.argmax(-1)
+        fed, dec, walls = [tok], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, cache = lm.decode_step(weights, tok[:, None], cache)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            dec.append(lg)
+            tok = lg.argmax(-1)
+            fed.append(tok)
+        require(bool((cache.position == total).all()), f"{key}: position {cache.position.tolist()} is {total}")
+        require(all(bool(torch.isfinite(lg).all()) for lg in dec), f"{key}: finite decode logits")
+        for field in DecodeCache._fields:
+            leaf = getattr(cache, field)
+            if leaf.is_floating_point() and leaf.numel():
+                require(bool(torch.isfinite(leaf).all()), f"{key}: cache {field} finite")
+        entry["decode_ms_per_step_median"] = sorted(walls)[len(walls) // 2] * 1e3
+        del cache
+
+        # -- the teacher-forced forward over prompt and the fed tokens -------
+        seq = torch.cat([prompts, torch.stack(fed[:steps], 1)], dim=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        full = lm.forward(weights, seq, img)[:, prompt - 1 :]
+        torch.cuda.synchronize()
+        entry["forward_s"] = time.perf_counter() - t
+        launches = dispatch.launch_counts()
+        gaps = [((last - full[:, 0]).abs().max() / full[:, 0].abs().max()).item()]
+        gaps += [((lg - full[:, i + 1]).abs().max() / full[:, i + 1].abs().max()).item() for i, lg in enumerate(dec)]
+        agree = torch.stack([full[:, i].argmax(-1) == fed[i] for i in range(steps)])
+        del full, dec, weights
+        torch.cuda.empty_cache()
+        entry.update(
+            worst_gap_over_step_max=max(gaps[1:]), prefill_gap_over_step_max=gaps[0],
+            greedy_agreement=agree.float().mean().item(),
+            launches={op: {"predicted_per_pass": per_pass[op], "after_prefill": after_prefill[op],
+                           "after_forward": launches[op]} for op in DENSE_OPS})
+        for op in DENSE_OPS:
+            require(after_prefill[op] == per_pass[op] and launches[op] == 2 * per_pass[op],
+                    f"{key}: {op} launched {after_prefill[op]} times in the prefill and {launches[op]} with "
+                    f"the forward, predicted {per_pass[op]} a pass")
+            if per_pass[op]:
+                counts[op][key] = launches[op]
+        print(f"dense {key}: {entry['parameters']} parameters drawn in {entry['draw_s']:.1f} s, device memory "
+              f"{entry['before_gib']:.2f} GiB before, {entry['held_gib']:.2f} held after; prefill {batch} x {prompt} in {entry['prefill_s']:.3f} s, {steps} "
+              f"greedy steps at {entry['decode_ms_per_step_median']:.2f} ms (median), forward {batch} x {total} "
+              f"in {entry['forward_s']:.3f} s; launches (predicted a pass, after prefill, after forward) "
+              f"{json.dumps(entry['launches'])}; decode against the forward: worst gap "
+              f"{entry['worst_gap_over_step_max']!r} of the step's largest |logit| (prefill "
+              f"{entry['prefill_gap_over_step_max']!r}), greedy agreement {entry['greedy_agreement']!r}",
+              flush=True)
+
+        # -- each kernel against its plain version on the path's inputs -------
+        for op, check in (("flash_attention", flash_case), ("ssd_scan", ssd_case)):
+            calls, taps[op].calls = taps[op].calls, []
+            if not per_pass[op]:
+                continue
+            require(len(calls) == 2, f"{key}: the prefill's first and last {op} calls kept")
+            cases = [check(rate, call, f"{key} {op} ({which})") for call, which in zip(calls, ("first", "last"))]
+            shapes[op][key] = cases
+            print(f"dense {key} {op}, the prefill's first and last calls against the plain version: "
+                  f"{json.dumps(cases)}", flush=True)
+            del calls
+        torch.cuda.synchronize()
+        entry["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        entry["model_s"] = time.perf_counter() - t_model
+        report[key] = entry
+        del img, prompts, seq
+        torch.cuda.empty_cache()
+
+    # -- the smoke configs on the card against the CPU path ----------------------
+    report["smoke_card_against_cpu"] = {}
+    for arch, *_ in DENSE_CELLS:
+        dispatch.reset_launch_counts()
+        readings = dense_cache_card_against_cpu(dev, arch)
+        readings["launches"] = {op: dispatch.launch_counts()[op] for op in DENSE_OPS}
+        report["smoke_card_against_cpu"][arch] = readings
+        if smoke_config(arch).uses_ssm:  # the SSM limit rejects each planted scan fault on the card
+            readings["planted_faults"] = dense_cache_rejects_planted_faults(dev, arch)
+    print(f"dense smoke runs: card against the CPU path, each logit within its limit x the step's largest "
+          f"(gemma3, vlm {dense_tolerance('gemma3_12b')}; mamba2, zamba2 {dense_tolerance('mamba2_130m')}, "
+          f"and each planted scan fault above it): {json.dumps(report['smoke_card_against_cpu'])}", flush=True)
+
+    for row in rows:
+        if row["name"] in DENSE_OPS:
+            row["registry_launches"] = row["launches"]
+            row["launches"] = sum(counts[row["name"]].values())
+            row["dense_cache_launches"] = counts[row["name"]]
+            row["dense_cache_shapes"] = shapes[row["name"]]
+    report["phase_s"] = time.perf_counter() - phase_t0
+    print(json.dumps({"dense_cache": report}), flush=True)
+
+
+def settle() -> None:
+    """Between phases: collect Python's cyclic garbage, then return the
+    cached blocks, so a phase starts with only what is still referenced.
+    Without the collection, a finished phase's schedulers and engines
+    (caught exceptions' frames among them) can keep their weights on the
+    card: 6.53 GiB when phase 15 began in one run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2821,35 +3119,39 @@ def main() -> int:
 
     # -- 10. the store's delta COW at the filter's scale -------------------
     delta_row = delta_store_phase(dev, rate, ys)
-    torch.cuda.empty_cache()
+    settle()
 
     # -- 11. the registry's other kernels at full width ---------------------
     registry_rows = registry_phase(dev, rate, final_logw)
-    torch.cuda.empty_cache()
+    settle()
 
     # -- 6-9. serving starcoder2-3b at full width -------------------------
     rows += serve_phases(dev, rate)
-    torch.cuda.empty_cache()
+    settle()
 
     # -- 12. SMC decoding through the scheduler at full width --------------
     smc = smc_decode_phase(dev, rows)
-    torch.cuda.empty_cache()
+    settle()
 
     # -- 13. an SMC fleet of two replicas against one, and its replay -------
     fleet_phase(dev, rows, *smc)
     del smc
-    torch.cuda.empty_cache()
+    settle()
 
-    # -- 14. the paper's five programs at the paper's N and T -------------
+    # -- 14. the paper's five programs at the paper's N and T (PCFG's cut) --
     programs_phase(dev, rows)
-    torch.cuda.empty_cache()
+    settle()
 
     # -- 15. the moe and audio families at full width ---------------------
     family_phase(dev, rate, rows)
-    torch.cuda.empty_cache()
+    settle()
     rows.insert(1, delta_row)
     rows[5:5] = registry_rows[:1]
     rows += registry_rows[1:]
+
+    # -- 16. the dense-cache families at full width -------------------------
+    dense_cache_phase(dev, rate, rows)
+    settle()
 
     # -- 5. where a generation's time goes (a traced LAZY_SR run), last: a
     # trace of ~4e5 kernels costs later traces some of their records.

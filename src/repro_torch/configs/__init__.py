@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-The architectures whose model family the port serves from the paged KV
-cache (dense, audio, moe) are known; the rest of the reference's
-registry (``repro.configs.registry.ARCHS``: gemma3-12b, llama-3.2-vision-90b,
-mamba2-130m, zamba2-7b) decodes through the reference's dense-cache path
-and raises until that path is ported (ROADMAP.md queue 1, item 6).
+Every architecture of the reference's registry
+(``repro.configs.registry.ARCHS``), by module name or canonical id; an
+unknown one raises.  ``LanguageModel`` builds them all; the paged
+``ServeEngine`` serves the dense, audio and moe families, and the others
+decode through ``LanguageModel.prefill``/``decode_step``'s dense caches.
 """
 
 from __future__ import annotations
@@ -12,42 +12,50 @@ from __future__ import annotations
 from repro_torch.configs import (
     command_r_plus_104b,
     deepseek_moe_16b,
+    gemma3_12b,
+    llama32_vision_90b,
+    mamba2_130m,
     musicgen_large,
     phi35_moe_42b,
     qwen25_32b,
     starcoder2_3b,
+    zamba2_7b,
 )
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ARCHS", "get_config", "smoke_config"]
 
 ARCHS = {
+    "zamba2_7b": zamba2_7b,
     "deepseek_moe_16b": deepseek_moe_16b,
     "phi35_moe_42b": phi35_moe_42b,
     "starcoder2_3b": starcoder2_3b,
+    "gemma3_12b": gemma3_12b,
     "command_r_plus_104b": command_r_plus_104b,
     "qwen25_32b": qwen25_32b,
+    "llama32_vision_90b": llama32_vision_90b,
     "musicgen_large": musicgen_large,
+    "mamba2_130m": mamba2_130m,
 }
 # canonical ids -> module names, as the reference's registry has them
 ALIASES = {
+    "zamba2-7b": "zamba2_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "starcoder2-3b": "starcoder2_3b",
+    "gemma3-12b": "gemma3_12b",
     "command-r-plus-104b": "command_r_plus_104b",
     "qwen2.5-32b": "qwen25_32b",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
     "musicgen-large": "musicgen_large",
+    "mamba2-130m": "mamba2_130m",
 }
 
 
 def _module(arch: str):
     name = ALIASES.get(arch, arch.replace("-", "_").replace(".", ""))
     if name not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet: its family decodes through the "
-            f"reference's dense-cache path (ROADMAP.md queue 1, item 6); the port knows "
-            f"{tuple(ARCHS)}"
-        )
+        raise ValueError(f"unknown architecture {arch!r}; the port knows {tuple(ARCHS)}")
     return ARCHS[name]
 
 

@@ -14,7 +14,9 @@ bool masks, the payload dtype).  A bfloat16 leaf, which numpy holds as
 :func:`params_from_numpy` maps the reference's parameter pytree (numpy
 leaves, layers stacked under ``blocks``) onto the port's tree, checking
 every leaf against the port's own shapes; :func:`kv_cache_from_numpy` /
-:func:`kv_cache_to_numpy` do for a ``PagedKVCache`` what the pool's do.
+:func:`kv_cache_to_numpy` do for a ``PagedKVCache`` what the pool's do,
+:func:`decode_cache_from_numpy` / :func:`decode_cache_to_numpy` for the
+model's dense ``DecodeCache``.
 :func:`program_params_from_numpy` does for a program's parameters
 (``repro.smc.programs``) what :func:`params_from_numpy` does for a
 model's.
@@ -30,7 +32,7 @@ import torch
 from repro_torch.core.pool import BlockPool
 from repro_torch.core.store import ParticleStore
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import LanguageModel
+from repro_torch.models.model import DecodeCache, LanguageModel
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.smc.programs import PROBLEMS
 
@@ -43,6 +45,8 @@ __all__ = [
     "params_from_numpy",
     "kv_cache_from_numpy",
     "kv_cache_to_numpy",
+    "decode_cache_from_numpy",
+    "decode_cache_to_numpy",
     "program_params_from_numpy",
 ]
 
@@ -137,6 +141,16 @@ def kv_cache_to_numpy(cache: PagedKVCache) -> PagedKVCache:
     return PagedKVCache(
         pool=pool_to_numpy(cache.pool), tables=_numpy(cache.tables), lengths=_numpy(cache.lengths)
     )
+
+
+def decode_cache_from_numpy(cache: Any, device: torch.device | str) -> DecodeCache:
+    """The reference's ``DecodeCache`` (numpy-convertible leaves, any object
+    with its field names) as the port's, on ``device``."""
+    return DecodeCache(*(_tensor(getattr(cache, f), device) for f in DecodeCache._fields))
+
+
+def decode_cache_to_numpy(cache: DecodeCache) -> DecodeCache:
+    return DecodeCache(*(_numpy(t) for t in cache))
 
 
 def program_params_from_numpy(name: str, params: Any, device: torch.device | str = "cpu") -> Any:

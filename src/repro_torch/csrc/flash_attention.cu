@@ -45,7 +45,9 @@
 //   the tensor cores take f32 only as TF32, whose 10-bit mantissa would
 //   break the f32 contract (atol 2e-5 against the plain version).  One
 //   CTA of 256 threads owns a (b, h, 64-query tile) with the softmax state
-//   in registers and 4 x 4 register tiles from shared memory.
+//   in registers and 4 x 4 register tiles from shared memory.  It is
+//   built for d 16 and 32 too (the smoke configs' widths, f32 only), which
+//   the bf16 kernel is not.
 
 #include <cmath>
 #include <cstdint>
@@ -677,6 +679,8 @@ int launch_wgmma(const Args& a, int64_t b, cudaStream_t s) {
 
 int dispatch(int64_t d, bool bf16, const Args& a, int64_t b, cudaStream_t s) {
   switch (d) {
+    case 16: return bf16 ? static_cast<int>(cudaErrorInvalidValue) : launch_simt<16>(a, b, s);
+    case 32: return bf16 ? static_cast<int>(cudaErrorInvalidValue) : launch_simt<32>(a, b, s);
     case 64: return bf16 ? launch_wgmma<64>(a, b, s) : launch_simt<64>(a, b, s);
     case 112: return bf16 ? launch_wgmma<112>(a, b, s) : launch_simt<112>(a, b, s);
     case 128: return bf16 ? launch_wgmma<128>(a, b, s) : launch_simt<128>(a, b, s);

@@ -23,8 +23,12 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _P, _I, _D, _C = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dimensions the kernel is built for: those of the configs
-HEAD_DIMS = (64, 112, 128, 256)
+#: head dimensions the kernel is built for: those of the configs, and the
+#: smoke configs' 16 and 32
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+#: those the bf16 tensor-core kernel takes: 16 and 32 are f32 only (the
+#: CUDA-core kernel), since no config runs bf16 at those widths
+BF16_HEAD_DIMS = (64, 112, 128, 256)
 
 
 def flash_attention(
@@ -52,6 +56,8 @@ def flash_attention(
         return flash_attention_ref(qt, kt, vt, scale=scale, window=window).transpose(1, 2)
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and d not in BF16_HEAD_DIMS:
+        raise ValueError(f"head dim {d} in bf16: the tensor-core kernel is built for {BF16_HEAD_DIMS}")
     if sk == 0:  # no key: every row writes 0, and TMA takes no empty extent
         return torch.zeros_like(q)
     if q.dtype == torch.bfloat16:

@@ -1,2 +1,3 @@
-"""The decoder language model (dense family so far): config, layers,
-attention and parameter initialisation."""
+"""The decoder language model, every family of the reference: config,
+layers, attention, the MoE and SSM mixers, and the model with its dense
+decode caches."""

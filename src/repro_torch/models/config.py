@@ -1,9 +1,7 @@
 """Model configuration covering all assigned architecture families.
 
 A copy of ``repro.models.config`` (framework-free): the port imports
-nothing of the JAX package.  The port builds the ``dense``, ``audio`` and
-``moe`` families so far; the other families' fields are kept so configs
-read the same.
+nothing of the JAX package.  The port builds every family.
 """
 
 from __future__ import annotations

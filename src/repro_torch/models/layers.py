@@ -4,7 +4,8 @@ Parameters are plain nested dicts of tensors with the reference's tree
 and names.  Initialisation goes through :class:`ParamBuilder`, which
 draws from an explicit ``torch.Generator`` by the reference's law
 (``layers.py:47-72`` of the JAX package): normal with standard deviation
-``1/sqrt(shape[0])`` (or the given ``scale``), norm scales zero.  The two
+``1/sqrt(shape[0])`` (or the given ``scale``), norm scales zero, the
+SSM's skip gains one.  The two
 frameworks give different numbers from one seed, so tests start both
 sides from the same weights through :mod:`repro_torch.convert`.  The
 logical-axis names of the reference (its sharding layer) are not kept:
@@ -96,6 +97,8 @@ class ParamBuilder:
             return None
         if init == "zeros":
             value = torch.zeros(full, dtype=self.dtype, device=self.device)
+        elif init == "ones":
+            value = torch.ones(full, dtype=self.dtype, device=self.device)
         elif init == "normal":
             fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
             std = scale if scale is not None else 1.0 / math.sqrt(fan_in)

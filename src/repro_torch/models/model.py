@@ -1,42 +1,58 @@
 """The decoder LM, in PyTorch (the port of ``repro.models.model``'s
-``LanguageModel``: its parameters and its training forward).
-
-Three families are ported, those the reference serves from the paged KV
-cache:
+``LanguageModel``): one implementation for every family of the reference.
 
   dense / audio     uniform block (attention + MLP)
+  local_global      gemma3: units of ``local_ratio`` sliding-window
+                    blocks and one global block; the local layers keep a
+                    ring KV cache of ``window`` slots
   moe               uniform block (attention + MoE), and for deepseek an
                     unstacked dense layer 0 (``block0``) whose MLP is as
                     wide as the active experts together
+  ssm               mamba2: uniform SSD mixer blocks
+  hybrid            zamba2: SSD blocks, and one *shared* attention block
+                    (one parameter set, a KV cache per invocation) after
+                    every ``attn_every``-th layer
+  vlm               llama-3.2-vision: units of ``cross_every - 1`` self
+                    blocks, an anchor block and a cross-attention to the
+                    image features (precomputed, a frontend stub)
 
-Per-layer parameters are stacked over layers, as the reference stacks
-them for ``lax.scan``; the port's layer loop indexes the stack
-(:func:`iter_layers`).  The tree is the reference's::
+Per-layer parameters are stacked over layers (or units), as the
+reference stacks them for ``lax.scan``; the port's loops index the stack
+(:func:`layer_params`).  The tree is the reference's::
 
     embed [padded_vocab, d]            final_norm/scale [d]
     (unembed [padded_vocab, d] unless tie_embeddings)
     blocks/ln1/scale [L, d]            blocks/attn/{wq,wk,wv,wo}
     blocks/ln2/scale [L, d]            blocks/mlp/{w_gate?,w_up,w_down}
                                        or blocks/moe/{router,experts/*,shared/*}
+    blocks/{local{i},global}/...       (local_global, per unit)
+    blocks/{self{i},anchor}/..., blocks/ln_cross, blocks/cross (vlm)
+    blocks/ln/scale, blocks/ssm/*      (ssm, hybrid)
     (block0/{ln1,attn,ln2,mlp} for a moe model with first_layer_dense)
+    (shared_attn/{pre,attn,mid,mlp} for hybrid)
 
-The other families (local_global, vlm, ssm, hybrid) raise: they run the
-reference's dense-cache decode path, which is not ported
-(ROADMAP.md queue 1, item 6), as are ``loss``, ``prefill``,
-``decode_step`` and ``init_cache``.  Serving runs through
+Entry points: ``forward`` (logits, no caches), ``loss``, ``prefill``
+(logits and the filled :class:`DecodeCache`) and ``decode_step`` (one
+token against the dense caches).  The reference fills the caches by
+replaying the forward; ``prefill`` here fills them in the forward's own
+pass (the same code, so its logits are ``forward``'s bit for bit), one
+attention and one SSD scan per layer.  On the card every self-attention
+of the forward goes through the ``flash_attention`` kernel and every SSM
+layer through ``ssd_scan``.  The COW-paged serving path lives in
 :mod:`repro_torch.serving.engine`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     ParamBuilder,
@@ -54,20 +70,33 @@ from repro_torch.models.layers import (
 Params = Dict[str, Any]
 Finish = Callable[[str, torch.Tensor], torch.Tensor]
 
-PORTED_FAMILIES = ("dense", "audio", "moe")
+
+class DecodeCache(NamedTuple):
+    """Decode-time state.  Unused fields are size-0 tensors.
+
+    k/v:         [n_full_layers, B, S_max, KVH, hd]   full-attention caches
+    k_loc/v_loc: [n_units, n_local, B, window, KVH, hd] ring caches (gemma)
+    ssm_conv:    [L, B, 3, conv_ch]; ssm_state: [L, B, H, P, N] (float32)
+    shared_k/v:  [n_invocations, B, S_max, KVH, hd]   zamba2 shared block
+    img_feats:   [B, n_img, D] (vlm cross-attention source)
+    position:    [B] current length (int32)
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_loc: torch.Tensor
+    v_loc: torch.Tensor
+    ssm_conv: torch.Tensor
+    ssm_state: torch.Tensor
+    shared_k: torch.Tensor
+    shared_v: torch.Tensor
+    img_feats: torch.Tensor
+    position: torch.Tensor
 
 
 @dataclasses.dataclass
 class LanguageModel:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        if self.cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"model family {self.cfg.family!r} is not ported yet: it decodes through the "
-                f"reference's dense-cache path (ROADMAP.md queue 1, item 6); the port builds "
-                f"{PORTED_FAMILIES}"
-            )
 
     def init(
         self,
@@ -107,6 +136,13 @@ class LanguageModel:
             self._init_block, generator, self._n_scan, cfg.param_dtype, device=dev,
             finish=scoped("blocks"),
         ))]
+        if cfg.family == "hybrid":
+            bb = ParamBuilder(generator, cfg.param_dtype, device=dev, finish=scoped("shared_attn"))
+            init_rms_norm(bb, "pre", cfg.d_model)
+            attn_lib.init_attention(bb.scope("attn"), cfg)
+            init_rms_norm(bb, "mid", cfg.d_model)
+            init_mlp(bb, "mlp", cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+            parts.append(("shared_attn", bb))
         if self.has_block0:
             bb = ParamBuilder(generator, cfg.param_dtype, device=dev, finish=scoped("block0"))
             self._init_dense_block(bb, d_ff=self._dense_ff)
@@ -123,7 +159,12 @@ class LanguageModel:
 
     @property
     def _n_scan(self) -> int:
-        return self.cfg.n_layers - (1 if self.has_block0 else 0)
+        cfg = self.cfg
+        if cfg.family == "local_global":
+            return cfg.n_layers // (cfg.local_ratio + 1)
+        if cfg.family == "vlm":
+            return cfg.n_layers // cfg.cross_every
+        return cfg.n_layers - (1 if self.has_block0 else 0)
 
     @property
     def _dense_ff(self) -> int:
@@ -141,31 +182,313 @@ class LanguageModel:
 
     def _init_block(self, b) -> None:
         cfg = self.cfg
-        if cfg.family == "moe":
+        fam = cfg.family
+        if fam in ("dense", "audio"):
+            self._init_dense_block(b)
+        elif fam == "local_global":
+            for i in range(cfg.local_ratio):
+                self._init_dense_block(b.scope(f"local{i}"))
+            self._init_dense_block(b.scope("global"))
+        elif fam == "moe":
             init_rms_norm(b, "ln1", cfg.d_model)
             attn_lib.init_attention(b.scope("attn"), cfg)
             init_rms_norm(b, "ln2", cfg.d_model)
             moe_lib.init_moe(b.scope("moe"), cfg)
+        elif fam in ("ssm", "hybrid"):
+            init_rms_norm(b, "ln", cfg.d_model)
+            ssm_lib.init_ssm(b.scope("ssm"), cfg)
+        elif fam == "vlm":
+            for i in range(cfg.cross_every - 1):
+                self._init_dense_block(b.scope(f"self{i}"))
+            self._init_dense_block(b.scope("anchor"))
+            init_rms_norm(b, "ln_cross", cfg.d_model)
+            attn_lib.init_attention(b.scope("cross"), cfg, cross=True)
         else:
-            self._init_dense_block(b)
+            raise ValueError(fam)
 
     # ------------------------------------------------------------------
-    # training forward
+    # training forward, loss and prefill
     # ------------------------------------------------------------------
-    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> logits [B, S, padded_vocab] (float32), causal
-        attention over the whole sequence, no caches."""
-        cfg = self.cfg
-        x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    def forward(
+        self, params: Params, tokens: torch.Tensor, img_feats: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """tokens [B, S] (and, vlm, img_feats [B, n_img, D]) -> logits
+        [B, S, padded_vocab] (float32), causal over the whole sequence, no
+        caches."""
+        return self._logits(params, self._run_blocks(params, tokens, img_feats, None))
+
+    def loss(
+        self,
+        params: Params,
+        tokens: torch.Tensor,
+        labels: torch.Tensor,
+        img_feats: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross entropy over the labels >= 0, and the
+        accuracy of the argmax there (a value only: nothing here takes a
+        gradient)."""
+        logits = self.forward(params, tokens, img_feats)
+        mask = labels >= 0
+        safe = labels.clamp(min=0).long()
+        nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, safe[..., None])[..., 0]
+        denom = mask.sum().clamp(min=1)
+        loss = torch.where(mask, nll, 0.0).sum() / denom
+        acc = (mask & (logits.argmax(dim=-1) == safe)).sum() / denom
+        return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+    def prefill(
+        self,
+        params: Params,
+        tokens: torch.Tensor,
+        max_len: int,
+        img_feats: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, DecodeCache]:
+        """Process a prompt [B, S]; returns (logits [B, S, V], the decode
+        cache of ``max_len`` positions filled through S).  One pass: the
+        forward's, which writes each layer's K/V and SSM state into the
+        cache as it goes; its logits equal ``forward``'s bit for bit."""
         b, s = tokens.shape
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-        for p in iter_layers(params, cfg):
-            x = x + attn_lib.attention_train(
-                p["attn"], rms_norm(x, p["ln1"]["scale"], cfg.norm_eps), cfg, positions
-            )
-            x = x + feed_forward(p, rms_norm(x, p["ln2"]["scale"], cfg.norm_eps), cfg)
-        x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        cache = self.init_cache(b, max_len, img_feats, device=tokens.device)
+        logits = self._logits(params, self._run_blocks(params, tokens, img_feats, cache))
+        return logits, cache._replace(position=torch.full_like(cache.position, s))
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["final_norm"]["scale"], self.cfg.norm_eps)
         return unembed(params.get("unembed", params["embed"]), x)
+
+    def _run_blocks(
+        self,
+        params: Params,
+        tokens: torch.Tensor,
+        img_feats: Optional[torch.Tensor],
+        fill: Optional[DecodeCache],
+    ) -> torch.Tensor:
+        """The layer stack over the embedded tokens; with ``fill``, each
+        layer's K (rotated) and V, ring slots and SSM state are written
+        into that cache in place."""
+        cfg = self.cfg
+        fam = cfg.family
+        eps = cfg.norm_eps
+        b, s = tokens.shape
+        x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+
+        def attend(p, h, k_c=None, v_c=None, window=0, norm="ln1"):
+            out, k, v = attn_lib.attention_train(
+                p["attn"], rms_norm(h, p[norm]["scale"], eps), cfg, window=window
+            )
+            if k_c is not None:
+                k_c[:, :s] = k
+                v_c[:, :s] = v
+            return h + out, k, v
+
+        def dense_block(p, h, k_c=None, v_c=None, window=0):
+            h, k, v = attend(p, h, k_c, v_c, window)
+            return h + feed_forward(p, rms_norm(h, p["ln2"]["scale"], eps), cfg), k, v
+
+        def ssm_block(p, h, layer):
+            out, c = ssm_lib.ssm_layer(p["ssm"], rms_norm(h, p["ln"]["scale"], eps), cfg)
+            if fill is not None:
+                fill.ssm_conv[layer] = c.conv
+                fill.ssm_state[layer] = c.state
+            return h + out
+
+        def slot(leaf, *idx):
+            return None if fill is None else getattr(fill, leaf)[idx]
+
+        blocks = params["blocks"]
+        if fam in ("dense", "audio", "moe"):
+            for i, p in enumerate(iter_layers(params, cfg)):
+                x, _, _ = dense_block(p, x, slot("k", i), slot("v", i))
+        elif fam == "ssm":
+            for i in range(cfg.n_layers):
+                x = ssm_block(layer_params(blocks, i), x, i)
+        elif fam == "hybrid":
+            sp = params["shared_attn"]
+            every = cfg.attn_every
+            for i in range(cfg.n_layers):
+                x = ssm_block(layer_params(blocks, i), x, i)
+                if i % every == every - 1:
+                    inv = i // every
+                    x, _, _ = attend(sp, x, slot("shared_k", inv), slot("shared_v", inv), norm="pre")
+                    x = x + mlp(sp["mlp"], rms_norm(x, sp["mid"]["scale"], eps), cfg.act)
+        elif fam == "local_global":
+            for u in range(self._n_scan):
+                pu = layer_params(blocks, u)
+                for i in range(cfg.local_ratio):
+                    x, k, v = dense_block(pu[f"local{i}"], x, window=cfg.window)
+                    if fill is not None:
+                        fill.k_loc[u, i] = _to_ring(k, s, cfg.window)
+                        fill.v_loc[u, i] = _to_ring(v, s, cfg.window)
+                x, _, _ = dense_block(pu["global"], x, slot("k", u), slot("v", u))
+        elif fam == "vlm":
+            if img_feats is None:
+                raise ValueError("the vlm family needs img_feats [B, n_img, D]")
+            n = cfg.cross_every
+            for u in range(self._n_scan):
+                pu = layer_params(blocks, u)
+                for i, name in enumerate([f"self{j}" for j in range(n - 1)] + ["anchor"]):
+                    x, _, _ = dense_block(pu[name], x, slot("k", u * n + i), slot("v", u * n + i))
+                x = x + attn_lib.cross_attention(
+                    pu["cross"], rms_norm(x, pu["ln_cross"]["scale"], eps), img_feats.to(x.dtype), cfg
+                )
+        else:
+            raise ValueError(fam)
+        return x
+
+    # ------------------------------------------------------------------
+    # decode caches and the decode step
+    # ------------------------------------------------------------------
+    def init_cache(
+        self,
+        batch: int,
+        max_len: int,
+        img_feats: Optional[torch.Tensor] = None,
+        *,
+        device: torch.device | str = "cuda",
+    ) -> DecodeCache:
+        """Zeroed caches for ``batch`` rows of up to ``max_len`` positions,
+        the reference's shapes and dtypes, on ``device``."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        dt = torch_dtype(cfg.dtype)
+        kvh, hd = cfg.n_kv_heads, cfg.hd
+
+        def e(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        k = v = k_loc = v_loc = ssm_conv = ssm_state = shared_k = shared_v = e(0)
+        fam = cfg.family
+        if fam in ("dense", "audio", "moe", "vlm"):
+            k, v = e(cfg.n_layers, batch, max_len, kvh, hd), e(cfg.n_layers, batch, max_len, kvh, hd)
+        if fam == "local_global":
+            units = self._n_scan
+            k, v = e(units, batch, max_len, kvh, hd), e(units, batch, max_len, kvh, hd)
+            k_loc = e(units, cfg.local_ratio, batch, cfg.window, kvh, hd)
+            v_loc = e(units, cfg.local_ratio, batch, cfg.window, kvh, hd)
+        if fam in ("ssm", "hybrid"):
+            one = ssm_lib.init_ssm_cache(cfg, batch, dt, dev)
+            ssm_conv = one.conv.expand(cfg.n_layers, *one.conv.shape).contiguous()
+            ssm_state = one.state.expand(cfg.n_layers, *one.state.shape).contiguous()
+        if fam == "hybrid":
+            n_inv = cfg.n_layers // cfg.attn_every
+            shared_k, shared_v = e(n_inv, batch, max_len, kvh, hd), e(n_inv, batch, max_len, kvh, hd)
+        img = img_feats if img_feats is not None else e(batch, 0, cfg.d_model)
+        return DecodeCache(
+            k=k, v=v, k_loc=k_loc, v_loc=v_loc, ssm_conv=ssm_conv, ssm_state=ssm_state,
+            shared_k=shared_k, shared_v=shared_v, img_feats=img,
+            position=torch.zeros((batch,), dtype=torch.int32, device=dev),
+        )
+
+    def decode_step(
+        self, params: Params, tokens: torch.Tensor, cache: DecodeCache
+    ) -> Tuple[torch.Tensor, DecodeCache]:
+        """tokens [B, 1] at ``cache.position`` -> (logits [B, V], the cache
+        one position on).  The cache passed in is consumed: the new
+        token's K/V, ring slots and SSM states are written into its
+        tensors in place (no copy of the caches a step), so read the old
+        state before the call if it is needed again."""
+        cfg = self.cfg
+        fam = cfg.family
+        eps = cfg.norm_eps
+        b = tokens.shape[0]
+        pos = cache.position  # [B]
+        rows, at = torch.arange(b, device=tokens.device), pos.long()
+        x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+
+        def attn_step(p, h, k_c, v_c, window=0, norm="ln1"):
+            out, k_new, v_new = attn_lib.attention_decode(
+                p["attn"], rms_norm(h, p[norm]["scale"], eps), k_c, v_c, pos, cfg, window=window
+            )
+            k_c[rows, at] = k_new[:, 0]
+            v_c[rows, at] = v_new[:, 0]
+            return h + out
+
+        def dense_step(p, h, k_c, v_c):
+            h = attn_step(p, h, k_c, v_c)
+            return h + feed_forward(p, rms_norm(h, p["ln2"]["scale"], eps), cfg)
+
+        def ssm_step(p, h, layer):
+            out, c = ssm_lib.ssm_decode(
+                p["ssm"], rms_norm(h, p["ln"]["scale"], eps),
+                ssm_lib.SSMCache(cache.ssm_conv[layer], cache.ssm_state[layer]), cfg,
+            )
+            cache.ssm_conv[layer] = c.conv
+            cache.ssm_state[layer] = c.state
+            return h + out
+
+        blocks = params["blocks"]
+        if fam in ("dense", "audio", "moe"):
+            for i, p in enumerate(iter_layers(params, cfg)):
+                x = dense_step(p, x, cache.k[i], cache.v[i])
+        elif fam == "ssm":
+            for i in range(cfg.n_layers):
+                x = ssm_step(layer_params(blocks, i), x, i)
+        elif fam == "hybrid":
+            sp = params["shared_attn"]
+            every = cfg.attn_every
+            for i in range(cfg.n_layers):
+                x = ssm_step(layer_params(blocks, i), x, i)
+                if i % every == every - 1:
+                    inv = i // every
+                    x = attn_step(sp, x, cache.shared_k[inv], cache.shared_v[inv], norm="pre")
+                    x = x + mlp(sp["mlp"], rms_norm(x, sp["mid"]["scale"], eps), cfg.act)
+        elif fam == "local_global":
+            for u in range(self._n_scan):
+                pu = layer_params(blocks, u)
+                for i in range(cfg.local_ratio):
+                    x = self._ring_step(pu[f"local{i}"], x, cache.k_loc[u, i], cache.v_loc[u, i], pos)
+                x = dense_step(pu["global"], x, cache.k[u], cache.v[u])
+        elif fam == "vlm":
+            n = cfg.cross_every
+            feats = cache.img_feats
+            for u in range(self._n_scan):
+                pu = layer_params(blocks, u)
+                for i, name in enumerate([f"self{j}" for j in range(n - 1)] + ["anchor"]):
+                    x = dense_step(pu[name], x, cache.k[u * n + i], cache.v[u * n + i])
+                x = x + attn_lib.cross_attention(
+                    pu["cross"], rms_norm(x, pu["ln_cross"]["scale"], eps), feats.to(x.dtype), cfg
+                )
+        else:
+            raise ValueError(fam)
+        logits = self._logits(params, x)[:, 0]
+        return logits, cache._replace(position=cache.position + 1)
+
+    def _ring_step(self, p, h, k_c, v_c, pos):
+        """A sliding-window layer's decode step against its ring cache of
+        ``window`` slots [B, w, KVH, hd]; slot ``j`` holds the position
+        ``pos - 1 - ((pos - 1 - j) mod w)``, masked where that is negative
+        or, after a wrap, too old."""
+        cfg = self.cfg
+        w = cfg.window
+        hn = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
+        slot = torch.arange(w, dtype=torch.int32, device=h.device)[None, :]
+        age = (pos[:, None] - 1 - slot) % w  # distance of each slot
+        k_pos = pos[:, None] - 1 - age
+        q, k_new, v_new = attn_lib.qkv_proj(p["attn"], hn, cfg)
+        q = attn_lib.apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_new = attn_lib.apply_rope(k_new, pos[:, None], cfg.rope_theta)
+        scores = attn_lib._grouped_scores(q, k_c).float()
+        ok = (k_pos >= 0) & (k_pos < pos[:, None]) & (pos[:, None] - k_pos < w)
+        self_s = attn_lib._grouped_scores(q, k_new).float()
+        scores = torch.where(ok[:, None, None, None, :], scores, attn_lib.NEG_INF)
+        allp = torch.softmax(torch.cat([scores, self_s], dim=-1), dim=-1).to(h.dtype)
+        out = attn_lib._grouped_out(allp[..., :w], v_c) + attn_lib._grouped_out(allp[..., w:], v_new)
+        h = h + attn_lib.out_proj(p["attn"], out)
+        h = h + mlp(p["mlp"], rms_norm(h, p["ln2"]["scale"], cfg.norm_eps), cfg.act)
+        rows = torch.arange(h.shape[0], device=h.device)
+        k_c[rows, (pos % w).long()] = k_new[:, 0]
+        v_c[rows, (pos % w).long()] = v_new[:, 0]
+        return h
+
+
+def _to_ring(k_new: torch.Tensor, s: int, w: int) -> torch.Tensor:
+    """The ring layout of a local layer's K or V [B, s, KVH, hd] after s
+    tokens: slot ``j`` holds the last position ``p < s`` with ``p mod w ==
+    j``.  As the reference lays it out, a slot no position has reached yet
+    (``s < w``) holds position ``s - 1`` (decode masks it)."""
+    slots = torch.arange(w, device=k_new.device)
+    abs_pos = slots + ((s - 1 - slots) // w) * w if s >= w else slots
+    return k_new[:, abs_pos.clamp(0, s - 1)]
 
 
 def layer_params(blocks: Params, layer: int) -> Params:
@@ -177,8 +500,9 @@ def layer_params(blocks: Params, layer: int) -> Params:
 
 
 def iter_layers(params: Params, cfg: ModelConfig) -> Iterator[Params]:
-    """Each layer's parameters in depth order: ``block0`` first where the
-    model has one, then the stack."""
+    """Each layer's parameters in depth order for the uniform families
+    (dense, audio, moe): ``block0`` first where the model has one, then
+    the stack."""
     if "block0" in params:
         yield params["block0"]
     n = cfg.n_layers - (1 if "block0" in params else 0)

@@ -15,6 +15,14 @@ mask, equal on the card and the CPU wherever the gap between the k-th
 and (k+1)-th gate exceeds ``ROUTE_GAP``.  A row past a near tie (and its
 forked copies) may take other experts on the two sides, so its logits
 are left out of the logit check and counted.
+
+:func:`dense_cache_card_against_cpu` does the same for the model's dense
+decode caches (``LanguageModel.prefill`` and ``decode_step``), for any
+family: two prompts of ``DENSE_PROMPT_LEN`` tokens prefilled, then
+``DENSE_STEPS`` decode steps on fed tokens, on the card (prefill through
+``flash_attention`` and ``ssd_scan``) and on the CPU.
+:func:`dense_cache_rejects_planted_faults` shows where the SSM families'
+limit sits: each of ``SCAN_FAULTS``, planted into the scan, reads above it.
 """
 
 from __future__ import annotations
@@ -28,9 +36,11 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.configs.starcoder2_3b import SMOKE
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.model import LanguageModel
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import torch_dtype
+from repro_torch.models.model import DecodeCache, LanguageModel
 from repro_torch.serving import kv_cache as kvc
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.engine import ServeEngine, cast_matrices
 
 # |card - CPU| per logit, in units of the step's largest |logit|.  The
 # logits are float32 sums taken in another order on each side (cuBLAS
@@ -41,6 +51,18 @@ LOGIT_TOL = 1e-5
 # pick another expert on the other side.
 ROUTE_GAP = 1e-4
 PROMPTS, PROMPT_LEN, ROWS, STEPS, REFORK_AT, COMPACT_AT = 2, 21, 8, 12, 6, 10
+# The dense-cache program: its prompt length is one the card's SSD scan
+# takes (its chunk min(64, S) a multiple of 16).
+DENSE_PROMPT_LEN, DENSE_STEPS = 32, 16
+# The SSM families' limit, in units of the step's largest |logit| (and of
+# each cache leaf's largest |value|).  ssd_scan on the card is held to its
+# plain version at rtol/atol 2e-4 (TF32 products, csrc/ssd_scan.cu); the
+# smoke runs read 1.05e-6 (mamba2) and 3.0e-6 (zamba2) on an H100, their
+# caches at most 1.7e-6, so one flat limit of 2e-5 sits 6.7x above the
+# larger reading and below the kernel's own.  Each planted fault of
+# SCAN_FAULTS reads above it (dense_cache_rejects_planted_faults).  The
+# attention-only families keep LOGIT_TOL.
+SSD_TOL = 2e-5
 SEED = 0  # the weights' generator; the tokens come from numpy's SEED + 9
 
 
@@ -197,3 +219,132 @@ def card_against_cpu(
             readings["worst_abs_diff"] = worst
             readings["logit_at_worst"] = a.flatten()[diff.argmax()].item()
     return readings, card
+
+
+def dense_program(device: torch.device | str, arch: str) -> Tuple[List[torch.Tensor], DecodeCache]:
+    """The dense-cache program on ``device`` with ``arch``'s smoke config
+    (float32, weights from ``SEED`` on the CPU): ``prefill`` of two
+    prompts, then ``DENSE_STEPS`` decode steps on fed tokens, all from
+    numpy's ``SEED + 10`` (and, vlm, image features).  Returns the
+    prefill's last-position logits and each step's, and the final cache."""
+    dev = torch.device(device)
+    cfg = smoke_config(arch)
+    lm = LanguageModel(cfg)
+    params = cast_matrices(lm.init(torch.Generator().manual_seed(SEED), device="cpu"),
+                           torch_dtype(cfg.dtype), dev)
+    rng = np.random.default_rng(SEED + 10)
+    tokens = rng.integers(0, cfg.vocab_size, (PROMPTS, DENSE_PROMPT_LEN + DENSE_STEPS))
+    img = None
+    if cfg.family == "vlm":
+        img = torch.as_tensor(rng.standard_normal((PROMPTS, cfg.n_img_tokens, cfg.d_model)),
+                              dtype=torch.float32, device=dev)
+    tokens = torch.as_tensor(tokens, device=dev)
+    logits, cache = lm.prefill(params, tokens[:, :DENSE_PROMPT_LEN], DENSE_PROMPT_LEN + DENSE_STEPS, img)
+    out = [logits[:, -1]]
+    for step in range(DENSE_STEPS):
+        at = DENSE_PROMPT_LEN + step
+        logits, cache = lm.decode_step(params, tokens[:, at : at + 1], cache)
+        out.append(logits)
+    return out, cache
+
+
+def dense_tolerance(arch: str) -> float:
+    """The limit of :func:`dense_cache_card_against_cpu` for ``arch``:
+    ``SSD_TOL`` for the ssm and hybrid families, else ``LOGIT_TOL``."""
+    return SSD_TOL if smoke_config(arch).uses_ssm else LOGIT_TOL
+
+
+def dense_readings(
+    cpu_run: Tuple[List[torch.Tensor], DecodeCache], run: Tuple[List[torch.Tensor], DecodeCache]
+) -> Dict:
+    """How far ``run`` (on any device) lies from ``cpu_run``: the worst
+    |difference| of a step's logits over the step's largest |logit|, each
+    float cache leaf's over its largest |value|, and whether the logits and
+    caches are finite and the positions and image features equal."""
+    readings = {"worst_diff_over_step_max": 0.0, "worst_abs_diff": 0.0, "largest_logit": 0.0,
+                "logits": 0, "worst_cache_diff_over_max": {}, "finite": True, "exact_leaves_equal": True}
+    for a, b in zip(cpu_run[0], run[0], strict=True):
+        b = b.cpu()
+        readings["finite"] &= bool(torch.isfinite(b).all())
+        diff = (b - a).abs().max().item()
+        scale = a.abs().max().item()
+        readings["worst_diff_over_step_max"] = max(readings["worst_diff_over_step_max"], diff / scale)
+        readings["worst_abs_diff"] = max(readings["worst_abs_diff"], diff)
+        readings["largest_logit"] = max(readings["largest_logit"], scale)
+        readings["logits"] += a.numel()
+    for field in DecodeCache._fields:
+        a, b = getattr(cpu_run[1], field), getattr(run[1], field).cpu()
+        _require(a.shape == b.shape and a.dtype == b.dtype, f"cache {field}: shape or dtype differ")
+        if not a.numel():
+            continue
+        if field in ("position", "img_feats"):
+            readings["exact_leaves_equal"] &= torch.equal(a, b)
+            continue
+        readings["finite"] &= bool(torch.isfinite(b).all())
+        scale = a.abs().max().item()
+        readings["worst_cache_diff_over_max"][field] = (b - a).abs().max().item() / scale if scale else 0.0
+    return readings
+
+
+def dense_cache_card_against_cpu(device: torch.device | str = "cuda", arch: str = "gemma3_12b") -> Dict:
+    """The dense-cache program on the CPU and on ``device``.  Raises unless
+    every logit is within :func:`dense_tolerance` times its step's largest
+    |logit| of the CPU's, every float cache leaf within the same times its
+    largest |value|, the image features equal and the positions equal.
+    Returns the readings."""
+    tol = dense_tolerance(arch)
+    card = dense_program(device, arch)
+    readings = {"limit": tol, **dense_readings(dense_program("cpu", arch), card)}
+    _require(bool((card[1].position.cpu() == DENSE_PROMPT_LEN + DENSE_STEPS).all()), "the position after the program")
+    _require(readings["finite"], "finite logits and caches on the card")
+    _require(readings["exact_leaves_equal"], "positions and image features equal")
+    _require(readings["worst_diff_over_step_max"] <= tol,
+             f"|card - CPU| {readings['worst_diff_over_step_max']} of the step's largest logit, above {tol}")
+    for field, ratio in readings["worst_cache_diff_over_max"].items():
+        _require(ratio <= tol, f"cache {field}: |card - CPU| {ratio} of its largest |value|, above {tol}")
+    return readings
+
+
+def _late_outputs_off(scan):
+    def faulty(x, dt, a, bmat, cmat, chunk):
+        y, h = scan(x, dt, a, bmat, cmat, chunk=chunk)
+        return torch.cat([y[:, : y.shape[1] // 2], y[:, y.shape[1] // 2 :] * (1 + 1e-4)], dim=1), h
+
+    return faulty
+
+
+# Faults a scan could make, planted into every ssm_layer's scan of the
+# run under test: B and C rounded to bf16 on the way in, and the outputs
+# of the second half of the positions 1e-4 (relative) off, as a decay
+# wrong across a chunk boundary would leave them.
+SCAN_FAULTS = {
+    "bc_rounded_to_bf16": lambda scan: lambda x, dt, a, bmat, cmat, chunk: scan(
+        x, dt, a, bmat.bfloat16().float(), cmat.bfloat16().float(), chunk=chunk),
+    "late_outputs_off_1e-4": _late_outputs_off,
+}
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
+    scan = ssm_lib.ssd_scan
+    ssm_lib.ssd_scan = SCAN_FAULTS[fault](scan)
+    try:
+        yield
+    finally:
+        ssm_lib.ssd_scan = scan
+
+
+def dense_cache_rejects_planted_faults(device: torch.device | str = "cuda", arch: str = "mamba2_130m") -> Dict[str, float]:
+    """The dense-cache program on ``device`` with each of ``SCAN_FAULTS``
+    planted, against the CPU's clean run.  Raises unless each reads above
+    :func:`dense_tolerance` (in units of the step's largest |logit|);
+    returns the readings."""
+    tol = dense_tolerance(arch)
+    clean = dense_program("cpu", arch)
+    readings = {}
+    for fault in SCAN_FAULTS:
+        with _planted(fault):
+            run = dense_program(device, arch)
+        readings[fault] = dense_readings(clean, run)["worst_diff_over_step_max"]
+        _require(readings[fault] > tol, f"planted fault {fault} reads {readings[fault]}, not above {tol}")
+    return readings

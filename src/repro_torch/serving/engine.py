@@ -35,14 +35,21 @@ from repro_torch.serving.kv_cache import KVCacheConfig, PagedKVCache
 SUPPORTED_FAMILIES = ("dense", "audio", "moe")
 
 
+#: Leaves the reference reads in float32 whatever the activation dtype:
+#: the norm scales (``rms_norm`` takes its scale in f32; the SSM's
+#: ``norm_scale`` too), the MoE router (a cast router would route
+#: otherwise), and the SSM's ``a_log``, ``dt_bias`` and ``d_skip``
+#: (``repro/models/ssm.py`` casts each to f32 where it reads it).
+F32_LEAVES = ("scale", "norm_scale", "router", "a_log", "dt_bias", "d_skip")
+
+
 def is_cast_leaf(path: str) -> bool:
     """Whether the leaf at ``path`` (``"blocks/attn/wq"``) is one of the
-    layer matrices the engine casts to the activation dtype: every leaf of
-    ``blocks`` and ``block0`` but the norm scales and the MoE router,
-    whose logits the reference takes in float32 from its float32 weights
-    (a cast router would route otherwise)."""
+    layer matrices cast once to the activation dtype: every leaf of
+    ``blocks``, ``block0`` and hybrid's ``shared_attn`` (whose matrices
+    every invocation would cast again) but the :data:`F32_LEAVES`."""
     parts = path.split("/")
-    return parts[0] in ("blocks", "block0") and parts[-1] not in ("scale", "router")
+    return parts[0] in ("blocks", "block0", "shared_attn") and parts[-1] not in F32_LEAVES
 
 
 def cast_matrices(params: Params, dtype: torch.dtype, device: torch.device) -> Params:
@@ -231,21 +238,22 @@ def _prefill(
     tokens: torch.Tensor,  # [B, S] (S % block_size == 0 is not required)
     seq_ids: torch.Tensor,  # [B] slots to fill
 ):
-    """Run the training forward and bulk-write K/V pages for the prompt."""
+    """Run the training forward and bulk-write K/V pages for the prompt
+    (positions ``0..S-1``: on the card the forward's attention is the
+    flash kernel)."""
     b, s = tokens.shape
     bs = ccfg.block_size
     nb = -(-s // bs)
     pad = nb * bs - s
     dev = tokens.device
     x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
-    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     k_all, v_all = [], []
     for p in iter_layers(params, cfg):
         hn = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-        _, k_new, v_new = attn_lib.qkv_proj(p["attn"], hn, cfg)
-        k_all.append(attn_lib.apply_rope(k_new, positions, cfg.rope_theta))
+        out, k_new, v_new = attn_lib.attention_train(p["attn"], hn, cfg)
+        k_all.append(k_new)
         v_all.append(v_new)
-        x = x + attn_lib.attention_train(p["attn"], hn, cfg, positions)
+        x = x + out
         x = x + feed_forward(p, rms_norm(x, p["ln2"]["scale"], cfg.norm_eps), cfg)
     # Only the last position's logits are returned: unembed it alone.
     x = rms_norm(x[:, -1:], params["final_norm"]["scale"], cfg.norm_eps)

@@ -27,7 +27,7 @@ from repro_torch.kernels.clone_chain import clone_chain_kernel, weights_cdf  # n
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
 from repro_torch.kernels.cow_write import cow_write, cow_write_delta  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import BF16_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.refcount_update import refcount_delta  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
@@ -455,7 +455,7 @@ class TestKernelsOnCard:
         got = systematic_comb(padded[1:], u.to(cuda_device)).cpu()
         assert torch.equal(got, systematic_comb(cum, u))
 
-    @pytest.mark.parametrize("d", HEAD_DIMS)
+    @pytest.mark.parametrize("d", BF16_HEAD_DIMS)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("window", [0, 45])
     def test_flash_attention(self, cuda_device, d, dtype, window):
@@ -464,7 +464,7 @@ class TestKernelsOnCard:
         within its rounding bound, f32 2e-5 (sums in another order)."""
         check_flash(rnd.generator(d + window, cuda_device), (2, 200, 6, 2, d), dtype, window)
 
-    @pytest.mark.parametrize("d", HEAD_DIMS)
+    @pytest.mark.parametrize("d", BF16_HEAD_DIMS)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("window", [0, 45, 1000])
     @pytest.mark.parametrize("b,s,h,kvh", [(1, 1, 4, 4), (3, 63, 3, 1), (1, 300, 8, 1), (3, 130, 16, 2)])

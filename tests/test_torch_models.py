@@ -54,10 +54,9 @@ def test_configs_match_the_reference():
     assert configs.get_config("starcoder2-3b") == CONFIG
     assert configs.smoke_config("starcoder2_3b") == SMOKE
     assert CONFIG.scaled(n_layers=2).n_layers == 2
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        configs.get_config("mamba2_130m")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        LanguageModel(CONFIG.scaled(family="ssm"))
+    with pytest.raises(ValueError, match="unknown architecture"):
+        configs.get_config("starcoder3_3b")
+    assert LanguageModel(CONFIG.scaled(family="ssm", ssm_state=16)).param_specs()["blocks/ssm/a_log"][0] == 30
 
 
 def test_rms_norm_gelu_and_rope():
@@ -101,7 +100,7 @@ def test_attention_train(ref_params, seq):
     pos = np.broadcast_to(np.arange(seq, dtype=np.int32), (2, seq))
     jp = jax.tree.map(lambda a: jnp.asarray(a[1]), ref_params["blocks"]["attn"])
     want = jattn.attention_train(jp, jnp.asarray(x), JSMOKE, jnp.asarray(pos))
-    got = tattn.attention_train(layer_params(tp["blocks"], 1)["attn"], t(x), SMOKE, t(pos))
+    got, _, _ = tattn.attention_train(layer_params(tp["blocks"], 1)["attn"], t(x), SMOKE)
     close(got, want, 1e-4)
 
 

@@ -136,10 +136,16 @@ def test_param_specs_match_the_reference(arch, size):
 
 @pytest.mark.parametrize("arch", ["mamba2_130m", "gemma3_12b", "llama32_vision_90b", "zamba2_7b"])
 def test_unported_families_still_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        configs.get_config(arch)
+    """The paged engine still refuses the families the reference's engine
+    refuses; they decode through ``LanguageModel``'s dense caches
+    (``tests/test_torch_families.py``)."""
+    cfg = configs.smoke_config(arch)
+    assert vars(cfg) == vars(jsmoke_config(arch))
+    lm = LanguageModel(cfg)
+    ccfg = tkv.KVCacheConfig(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                             block_size=4, max_seqs=2, max_blocks_per_seq=2, num_blocks=4, dtype=cfg.dtype)
     with pytest.raises(NotImplementedError, match="dense-cache"):
-        LanguageModel(jsmoke_config(arch))
+        ServeEngine(lm, lm.init(torch.Generator().manual_seed(0), device="cpu"), ccfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
