@@ -246,16 +246,51 @@ Phases (any failed check raises, and the script exits non-zero):
     and zamba2 each of the crosscheck's planted scan faults (B and C
     rounded to bf16; the later half of the outputs 1e-4 off) reading
     above that limit on the card.
+    Then the card where it used to raise: the mamba2 and zamba2 smoke
+    configs at prompts of 1, 20 and 40 tokens (the chunk ``min(64, S)`` no
+    multiple of 16: the scan runs over a ``dt = 0`` tail), within the same
+    limit of the CPU, one scan launch an SSM layer; bf16 flash at head dims
+    16 and 32 (the CUDA-core kernel, ``[2, 512, 8 over 2]``) against its
+    plain version as above, with its times.
     Prints ``{"dense_cache": ...}``; the ``flash_attention`` and
     ``ssd_scan`` rows take this phase's launches as ``launches`` (the
     registry's as ``registry_launches``) and its shapes' times as
     ``dense_cache_shapes``.
+17. The sharded store (``repro_torch.distributed``), run after phase 13
+    on phase 12's weights: the store program (N = 4,096, block 4, 8
+    blocks a particle, items ``(1,)``: appends, a clone on uniform random
+    ancestors, a within-shard pair clone, ``write_at``, lockstep ``grow``
+    and ``compact``) on 1, 2 and 4 in-process shards in every mode, each
+    stacked leaf, the trajectories and the per-shard blocks equal on the
+    card and on the CPU; the LGSSM at N = 65,536, T = 256 (``SHARDED_T``)
+    on one device and over 1, 2 and 4 shards, the 4-shard runs in every
+    mode, with the counters set to 0 just before the 4-shard LAZY_SR run
+    and read just after (``cow_write``, ``refcount_update`` and
+    ``cow_gather`` launched once a call of the store, counted by call:
+    an append a shard a generation, a clone and an export gather a shard
+    a resampling generation).  Checks: ``oom`` False; 4 shards'
+    ``log_evidence`` bit-identical across modes, LAZY_SR's trajectories
+    equal EAGER's, its blocks below 0.6 x EAGER's; 1 shard bit-exact with
+    the single-device run (every store leaf, the log-weights); an NCCL
+    process group of one rank (a ``file://`` rendezvous in a temporary
+    directory) bit-equal to the in-process shard; that run's last
+    ``cow_write``, ``refcount_update`` and export ``cow_gather``, and a
+    ``trajectories`` gather, against their plain versions (exact), with
+    their times; the token trace's import-skew case (one lockstep growth
+    before the clone, no ``oom``, the histories exact); a 2-shard
+    ``SMCDecoder`` on phase 12's request shape (16 particles, a prompt of
+    500 tokens, 16 steps, ESS threshold 1.0 so most steps resample)
+    bit-equal to the unsharded one (tokens, log-weights, log-evidence,
+    resampling steps).  Prints ``{"sharded": ...}`` (walls a generation,
+    per-shard used and peak blocks, the exchange's bytes a generation);
+    the three rows take the path's launches as ``sharded_launches`` and
+    its calls' times as ``sharded_shapes``.
 
 Phase 14 runs PCFG at T = 2,000 (``PROGRAM_T``; the paper's 3,262 is
 its ``PAPER_T``), so the script keeps within its time budget.
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
-``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"programs": ...}``, ``{"families": ...}``, ``{"dense_cache": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
+``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"sharded": ...}``, ``{"programs": ...}``, ``{"families": ...}``, ``{"dense_cache": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -2547,6 +2582,11 @@ DENSE_CELLS = (
 # rounding's share of the bf16 gaps from a fault's.
 F32_CONTROL = "mamba2_130m"
 DENSE_OPS = ("flash_attention", "ssd_scan")
+# Lengths whose chunk min(64, S) is no multiple of 16: the card's scan
+# runs them over a dt = 0 tail.  And bf16 flash at the smoke head dims
+# 16 and 32 (the CUDA-core kernel), at [B, S, H over KVH].
+SHORT_SSM_PROMPTS = (1, 20, 40)
+SMALL_HEAD_FLASH = (2, 512, 8, 2)
 
 
 class KernelTap:
@@ -2816,6 +2856,29 @@ def dense_cache_phase(dev, rate, rows) -> None:
           f"(gemma3, vlm {dense_tolerance('gemma3_12b')}; mamba2, zamba2 {dense_tolerance('mamba2_130m')}, "
           f"and each planted scan fault above it): {json.dumps(report['smoke_card_against_cpu'])}", flush=True)
 
+    # -- the card where it used to raise: SSM prompts whose chunk is no
+    # multiple of 16 (the scan's dt = 0 tail), bf16 flash at d 16 and 32 --
+    report["short_ssm_prompts"] = {}
+    for arch in ("mamba2_130m", "zamba2_7b"):
+        for s in SHORT_SSM_PROMPTS:
+            dispatch.reset_launch_counts()
+            readings = dense_cache_card_against_cpu(dev, arch, prompt_len=s)
+            readings["ssd_scan_launches"] = dispatch.launch_counts()["ssd_scan"]
+            want = predicted_launches(smoke_config(arch))["ssd_scan"]
+            require(readings["ssd_scan_launches"] == want,
+                    f"{arch} smoke, prompt {s}: {readings['ssd_scan_launches']} ssd_scan launches ({want})")
+            report["short_ssm_prompts"][f"{arch}/{s}"] = readings
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    for d in (16, 32):
+        b, s, h, kvh = SMALL_HEAD_FLASH
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, s, kvh, d), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        shapes["flash_attention"][f"bf16_d{d}"] = flash_case(rate, ((q, k, v), {}), f"bf16 flash at d {d}")
+    print(f"dense repairs on the card: smoke SSM prompts of {SHORT_SSM_PROMPTS} within "
+          f"{dense_tolerance('mamba2_130m')} of the CPU {json.dumps(report['short_ssm_prompts'])}; bf16 flash "
+          f"at d 16 and 32: {json.dumps({k: shapes['flash_attention'][k] for k in ('bf16_d16', 'bf16_d32')})}",
+          flush=True)
+
     for row in rows:
         if row["name"] in DENSE_OPS:
             row["registry_launches"] = row["launches"]
@@ -2824,6 +2887,353 @@ def dense_cache_phase(dev, rate, rows) -> None:
             row["dense_cache_shapes"] = shapes[row["name"]]
     report["phase_s"] = time.perf_counter() - phase_t0
     print(json.dumps({"dense_cache": report}), flush=True)
+
+
+# Phase 17: the sharded store.  The LGSSM at the filter's N, cut to
+# SHARDED_T generations, over 1, 2 and 4 in-process shards on the card; the
+# store program at SHARDED_STORE_N on the card and on the CPU; a sharded
+# SMCDecoder on phase 12's request shape.
+SHARDED_T = 256
+SHARDED_SHARDS = (1, 2, 4)
+SHARDED_STORE_N = 4_096
+SHARDED_OPS = ("cow_write", "refcount_update", "cow_gather")
+SHARDED_DECODE_SHARDS = 2
+SHARDED_DECODE_STEPS = 16
+# Resample on every step whose weights are not all equal: 16 steps then
+# run the exchange on most steps (phase 12's threshold of 0.5 resamples
+# ~0.15 times a step).
+SHARDED_DECODE_ESS = 1.0
+
+
+@contextlib.contextmanager
+def sharded_store_calls(last: dict, captured: dict):
+    """While open, the store's ``cow_write``, ``refcount_update`` and
+    ``cow_gather`` count their calls in ``last["seen"]`` and keep the
+    inputs of the call numbered ``last[op]`` (1-based; the data cloned
+    before a write) in ``captured``."""
+    from repro_torch.core import store as store_lib
+
+    write, update, gather = store_lib.cow_write, store_lib.refcount_update, store_lib.cow_gather
+    seen = last["seen"] = {op: 0 for op in SHARDED_OPS}
+
+    def keep(op) -> bool:
+        seen[op] += 1
+        return seen[op] == last.get(op)
+
+    def capture_write(data, src, dst, pos, values):
+        if keep("cow_write"):
+            captured["cow_write"] = (data.clone(), src.clone(), dst.clone(), pos.clone(), values.clone())
+        return write(data, src, dst, pos, values)
+
+    def capture_update(refcount, frozen, new_tables, old_tables, *, do_freeze):
+        if keep("refcount_update"):
+            captured["refcount_update"] = (new_tables.clone(), old_tables.clone(), refcount.shape[0])
+        return update(refcount, frozen, new_tables, old_tables, do_freeze=do_freeze)
+
+    def capture_gather(data, table, out=None):
+        if keep("cow_gather"):
+            captured["cow_gather"] = (data.clone(), table.clone())
+        return gather(data, table, out)
+
+    store_lib.cow_write, store_lib.refcount_update, store_lib.cow_gather = (
+        capture_write, capture_update, capture_gather)
+    try:
+        yield captured
+    finally:
+        store_lib.cow_write, store_lib.refcount_update, store_lib.cow_gather = write, update, gather
+
+
+def sharded_kernel_cases(rate, captured) -> dict:
+    """The sharded path's kept calls against their plain versions (exact),
+    with their device times, the plain versions', the library call's and
+    the bound (bytes over the memory rate)."""
+    from repro_torch.kernels.cow_gather import cow_gather, cow_gather_ref
+    from repro_torch.kernels.cow_write import cow_write, cow_write_ref
+    from repro_torch.kernels.refcount_update import refcount_delta, refcount_delta_ref
+
+    cases = {}
+    data, src, dst, pos, values = captured["cow_write"]
+    nb, block_bytes = data.shape[0] - 1, data[0].numel() * data.element_size()
+    got = cow_write(data.clone(), src, dst, pos, values)
+    want = cow_write_ref(data.clone(), src, dst, pos, values)
+    require(torch.equal(got[:nb], want[:nb]) and not got[nb].any(),
+            "sharded cow_write equals its plain version on a shard's append")
+    scratch_k, scratch_p = data.clone(), data.clone()
+
+    def plain_write():
+        cow_write_ref(scratch_p, src, dst, pos, values)
+        scratch_p[-1].zero_()
+
+    live = int((dst != nb).sum())
+    moved = src.numel() * (3 * 4 + values[0].numel() * values.element_size()) + 2 * (live + 1) * block_bytes
+    cases["cow_write"] = {"append": {
+        "rows": src.numel(), "pool_blocks": nb, "max_abs_err": 0.0,
+        "ms": device_ms(lambda: cow_write(scratch_k, src, dst, pos, values)), "plain_ms": device_ms(plain_write),
+        "bound_ms": moved / rate * 1e3, "bound_by": "bytes", "library_ms": None, "bytes": moved}}
+    del got, want, scratch_k, scratch_p
+
+    new, old, nb = captured["refcount_update"]
+    row = new.shape[-1]
+    new, old = new.reshape(-1).contiguous(), old.reshape(-1).contiguous()
+    got, want = refcount_delta(new, old, nb, row=row), refcount_delta_ref(new, old, nb)
+    require(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+            "sharded refcount_update equals its plain version on a shard's clone_partial")
+    new1, old1 = (new + 1).long(), (old + 1).long()
+    moved = 2 * old.numel() * 4 + nb * 5
+    cases["refcount_update"] = {"clone_partial": {
+        "entries": new.numel(), "pool_blocks": nb, "null_share": (new < 0).float().mean().item(),
+        "max_abs_err": 0.0, "ms": device_ms(lambda: refcount_delta(new, old, nb, row=row)),
+        "plain_ms": device_ms(lambda: refcount_delta_ref(new, old, nb)),
+        "bound_ms": moved / rate * 1e3, "bound_by": "bytes", "bytes": moved,
+        "library_ms": device_ms(lambda: torch.bincount(new1, minlength=nb + 1) - torch.bincount(old1, minlength=nb + 1))}}
+
+    cases["cow_gather"] = {}
+    for key in ("exports", "trajectories"):
+        data, table = captured[f"cow_gather_{key}"]
+        got, want = cow_gather(data, table), cow_gather_ref(data, table)
+        require(torch.equal(got, want), f"sharded cow_gather ({key}) equals its plain version")
+        block_bytes = data[0].numel() * data.element_size()
+        distinct = int(torch.unique(table[table >= 0]).numel())
+        moved = table.numel() * 4 + distinct * block_bytes + table.numel() * block_bytes
+        flat, safe = data.reshape(data.shape[0], -1), table.clamp(min=0).long()
+        cases["cow_gather"][key] = {
+            "entries": table.numel(), "distinct_blocks": distinct, "max_abs_err": 0.0,
+            "ms": device_ms(lambda: cow_gather(data, table)), "plain_ms": device_ms(lambda: cow_gather_ref(data, table)),
+            "bound_ms": moved / rate * 1e3, "bound_by": "bytes", "bytes": moved,
+            "library_ms": device_ms(lambda: torch.index_select(flat, 0, safe))}
+        del got, want, flat, safe
+    return cases
+
+
+def sharded_store_program(dev, S, mode) -> list:
+    """The store program on ``S`` in-process shards on ``dev``: appends of
+    normal items (from numpy's ``SEED + 40``), a clone on uniform random
+    ancestors (mostly across shards), a within-shard pair clone,
+    ``write_at``, lockstep ``grow`` and ``compact``; returns the stacked
+    view's leaves, the trajectories and the per-shard used and peak
+    blocks."""
+    from repro_torch.core.store import StoreConfig
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.distributed import sharded_store as tss
+
+    n = SHARDED_STORE_N
+    mesh = ShardMesh.in_process(S, dev)
+    cfg = tss.ShardedStoreConfig(StoreConfig(mode=mode, n=n, block_size=4, max_blocks=8, item_shape=(1,)), S)
+    rng = np.random.default_rng(SEED + 40)
+
+    def tensor(a):
+        return torch.as_tensor(a, device=dev)
+
+    st = tss.create(cfg, mesh)
+    for t in range(10):
+        st = tss.append(cfg, mesh, st, tensor(rng.standard_normal((n, 1)).astype(np.float32)))
+        if t == 3:
+            st = tss.clone(cfg, mesh, st, tensor(rng.integers(0, n, n).astype(np.int32)))
+        elif t == 5:
+            st = tss.clone(cfg, mesh, st, tensor((np.arange(n) // 2 * 2).astype(np.int32)))
+        elif t == 6:
+            st = tss.write_at(cfg, mesh, st, tensor(rng.integers(0, t + 1, n).astype(np.int32)),
+                              tensor(rng.standard_normal((n, 1)).astype(np.float32)))
+        elif t == 7:
+            st = tss.grow(cfg, mesh, st, tss.local_num_blocks(st) + 64)
+        elif t == 8:
+            st = tss.compact(cfg, mesh, st)
+    v = tss.stacked(mesh, st)
+    return [*v.pool, v.dense, v.tables, v.lengths, v.peak_blocks, tss.trajectories(cfg, mesh, st),
+            tss.used_blocks_per_shard(cfg, mesh, st), tss.peak_blocks_per_shard(cfg, mesh, st)]
+
+
+def sharded_phase(dev, rate, rows, ys, lm, weights) -> None:
+    """Phase 17 (module docstring): the sharded store at the filter's
+    scale.  Adds the path's launches and its kernels' cases to the
+    ``cow_write``, ``refcount_update`` and ``cow_gather`` rows."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import random as rnd
+    from repro_torch.core import store as store_lib
+    from repro_torch.core.config import ALL_MODES, CopyMode
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.distributed import sharded_store as tss
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving.smc_decode import SMCDecoder, _TokenTrace
+    from repro_torch.smc.filters import FilterConfig, ParticleFilter, SSMDef
+
+    phase_t0 = time.perf_counter()
+    report = {}
+    n, steps = N_PARTICLES, SHARDED_T
+    obs = ys[:steps]
+    ssm = lgssm(rnd, SSMDef)
+
+    # -- the store program, card against CPU --------------------------------
+    t = time.perf_counter()
+    for S in SHARDED_SHARDS:
+        for mode in ALL_MODES:
+            card, cpu = sharded_store_program(dev, S, mode), sharded_store_program(torch.device("cpu"), S, mode)
+            for i, (a, b) in enumerate(zip(card, cpu, strict=True)):
+                require(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.cpu(), b),
+                        f"sharded store program, S={S} {mode.value}: leaf {i} equal on card and CPU")
+    report["store_program_s"] = time.perf_counter() - t
+    print(f"sharded: the store program (N={SHARDED_STORE_N}, block 4, 8 blocks a particle; appends, a "
+          f"cross-shard clone, a pair clone, write_at, grow, compact) on {SHARDED_SHARDS} shards in every "
+          f"mode: every stacked leaf, the trajectories and the per-shard blocks equal on card and CPU "
+          f"({report['store_program_s']:.1f} s)", flush=True)
+
+    # -- the filter at N = 65,536 over 1, 2 and 4 shards ----------------------
+    def run(mode, mesh, capture=None):
+        cfg = FilterConfig(n_particles=n, n_steps=steps, mode=mode, mesh=mesh)
+        pf = ParticleFilter(ssm, cfg, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pf.run(rnd.generator(SEED, dev), None, obs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        require(not bool(res.oom), f"sharded filter {mode.value}, {mesh}: oom is False")
+        require(math.isfinite(float(res.log_evidence)), f"sharded filter {mode.value}: finite log_evidence")
+        return pf, res, wall
+
+    single_pf, single, single_wall = run(CopyMode.LAZY_SR, None)
+    report["single_device_ms_per_generation"] = single_wall / steps * 1e3
+    runs = {}
+    for S in SHARDED_SHARDS:
+        mesh = ShardMesh.in_process(S, dev)
+        modes = ALL_MODES if S == 4 else (CopyMode.LAZY_SR,)
+        for mode in modes:
+            last, captured = {}, {}
+            path = S == 4 and mode is CopyMode.LAZY_SR
+            if path:
+                # The path: counters from 0, the last call of each kernel kept.
+                last = {"cow_write": S * steps, "refcount_update": S * (steps - 1), "cow_gather": S * (steps - 1)}
+                dispatch.reset_launch_counts()
+            with sharded_store_calls(last, captured):
+                pf, res, wall = run(mode, mesh)
+            if path:
+                launches = dispatch.launch_counts()
+                report["launches"] = {op: launches[op] for op in SHARDED_OPS}
+                require(last["seen"] == {op: last[op] for op in SHARDED_OPS},
+                        f"sharded store calls {last['seen']}: an append a shard a generation, a clone and an "
+                        "export gather a shard a resampling generation")
+                for op in SHARDED_OPS:
+                    require(launches[op] == last[op], f"{op} launched on the sharded path ({launches[op]})")
+                captured["cow_gather_exports"] = captured.pop("cow_gather")
+                with sharded_store_calls({"cow_gather": S}, captured):
+                    tss.trajectories(pf.sharded_cfg, mesh, res.store)
+                captured["cow_gather_trajectories"] = captured.pop("cow_gather")
+                kept = captured
+            used = tss.used_blocks_per_shard(pf.sharded_cfg, mesh, res.store).tolist()
+            peak = tss.peak_blocks_per_shard(pf.sharded_cfg, mesh, res.store).tolist()
+            runs[(S, mode)] = (pf, res, mesh)
+            key = f"S{S}/{mode.value}"
+            report[key] = {"ms_per_generation": wall / steps * 1e3, "log_evidence": float(res.log_evidence),
+                           "used_blocks_per_shard": used, "peak_blocks_per_shard": peak,
+                           "pool_blocks_per_shard": tss.local_num_blocks(res.store)}
+            print(f"sharded filter {key}: N={n} T={steps} wall {wall:.3f} s "
+                  f"({wall / steps * 1e3:.3f} ms a generation), log_evidence {float(res.log_evidence)!r}, "
+                  f"used blocks per shard {used}, peak {peak}", flush=True)
+    bits = {m.value: runs[(4, m)][1].log_evidence.view(torch.int32).item() for m in ALL_MODES}
+    require(len(set(bits.values())) == 1, f"4 shards: log_evidence bit-identical across modes {bits}")
+    (pf_e, eager, mesh4), (pf_s, sr, _) = runs[(4, CopyMode.EAGER)], runs[(4, CopyMode.LAZY_SR)]
+    require(torch.equal(tss.trajectories(pf_e.sharded_cfg, mesh4, eager.store),
+                        tss.trajectories(pf_s.sharded_cfg, mesh4, sr.store)),
+            "4 shards: LAZY_SR trajectories equal EAGER's")
+    used = {m.value: sum(report[f"S4/{m.value}"]["used_blocks_per_shard"]) for m in ALL_MODES}
+    require(used["lazy_sr"] < 0.6 * used["eager"], f"4 shards: LAZY_SR's blocks below 0.6 x EAGER's {used}")
+
+    # S = 1 against the single-device run, leaf for leaf.
+    def leaves(v):
+        return [*v.pool, v.dense, v.tables, v.lengths, v.peak_blocks]
+
+    pf1, one, mesh1 = runs[(1, CopyMode.LAZY_SR)]
+    v = leaves(tss.stacked(mesh1, one.store))
+    require(single.log_evidence.view(torch.int32).item() == one.log_evidence.view(torch.int32).item()
+            and all(torch.equal(a.reshape(b.shape), b) for a, b in zip(leaves(single.store), v, strict=True))
+            and torch.equal(single.log_weights, one.log_weights),
+            "1 shard: bit-exact with the single-device filter (log_evidence, log-weights, every store leaf)")
+
+    # The NCCL process group at world size 1 against the in-process shard
+    # (gloo when the phase is rehearsed on the CPU).
+    with tempfile.TemporaryDirectory() as where:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=f"file://{os.path.join(where, 'rendezvous')}",
+                                world_size=1, rank=0)
+        try:
+            pmesh = ShardMesh.process_group(device=dev)
+            ppf, pres, pwall = run(CopyMode.LAZY_SR, pmesh)
+            pv = leaves(tss.stacked(pmesh, pres.store))
+        finally:
+            dist.destroy_process_group()
+    require(pres.log_evidence.view(torch.int32).item() == one.log_evidence.view(torch.int32).item()
+            and all(torch.equal(a, b) for a, b in zip(pv, v, strict=True)),
+            "NCCL process group of 1 rank: bit-equal to the in-process shard")
+    report["nccl_world_1_ms_per_generation"] = pwall / steps * 1e3
+    del pres, pv, v, one, single, runs, eager, sr
+    print(f"sharded: 4 shards bit-identical across modes (log_evidence {bits}); LAZY_SR's blocks "
+          f"{used['lazy_sr']} below 0.6 x EAGER's {used['eager']}; 1 shard bit-exact with the single-device "
+          f"run; the NCCL group of 1 rank bit-equal to it", flush=True)
+
+    # -- the exchange's bytes a generation at 4 shards ------------------------
+    capacity = pf_s.sharded_cfg.base.capacity
+    k, S = pf_s.sharded_cfg.exports, 4
+    item = 4  # float32 items of shape (1,)
+    report["exchange_bytes_per_generation"] = {
+        "exports_materialized": S * k * capacity * item,
+        "all_gather_read_and_written": 2 * S * k * capacity * item,
+        "imports_gathered_read_and_written": 2 * n * capacity * item,
+    }
+    report["exchange_bytes_per_generation"]["total"] = sum(report["exchange_bytes_per_generation"].values())
+
+    # -- the kernels on the path's own inputs -------------------------------
+    cases = sharded_kernel_cases(rate, kept)
+    del kept
+    print(f"sharded kernels on the path's inputs (4 shards, LAZY_SR, last generation): {json.dumps(cases)}",
+          flush=True)
+
+    # -- the token trace's import skew --------------------------------------
+    mesh = ShardMesh.in_process(4, dev)
+    tr = _TokenTrace(8, 16, CopyMode.LAZY_SR, 2, mesh)
+    for t in range(8):
+        tr.append(torch.full((8,), t, dtype=torch.int32, device=dev))
+    want = tr.tokens(8)
+    live = int(tss.used_blocks_per_shard(tr.shcfg, mesh, tr.store).max())
+    tr.store = tss.compact(tr.shcfg, mesh, tr.store, new_num_blocks=live)
+    anc = torch.full((8,), 7, dtype=torch.int32, device=dev)
+    grew = tr.ensure_clone_headroom(anc, 2.0)
+    tr.clone(anc)
+    require(grew == 1 and not tr.oom() and torch.equal(tr.tokens(8), want[7].expand(8, 8)),
+            f"token trace import skew: grew {grew} (1), oom {tr.oom()}, histories exact")
+
+    # -- a sharded SMCDecoder on phase 12's request shape ---------------------
+    prompt = torch.randint(0, lm.cfg.vocab_size, (SMC_PROMPT_LEN,),
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 20), device=dev)
+    decoded = {}
+    for shards in (None, SHARDED_DECODE_SHARDS):
+        mesh = None if shards is None else ShardMesh.in_process(shards, dev)
+        dec = SMCDecoder(lm, weights, SMC_PARTICLES, max_len=SMC_PROMPT_LEN + SHARDED_DECODE_STEPS + 16,
+                         block_size=SERVE_BLOCK, target_temp=SMC_TARGET_TEMP, proposal_temp=SMC_PROPOSAL_TEMP,
+                         ess_threshold=SHARDED_DECODE_ESS, mesh=mesh, device=None if mesh is not None else dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decoded[shards] = dec.run(torch.Generator(device=dev).manual_seed(SEED + 21), prompt, SHARDED_DECODE_STEPS)
+        torch.cuda.synchronize()
+        report[f"decode_{shards or 'unsharded'}_ms_per_step"] = (time.perf_counter() - t) / SHARDED_DECODE_STEPS * 1e3
+        del dec
+    plain, sharded = decoded[None], decoded[SHARDED_DECODE_SHARDS]
+    for f in ("tokens", "log_weights", "log_evidence", "resampled"):
+        require(torch.equal(getattr(plain, f), getattr(sharded, f)),
+                f"sharded SMCDecoder ({SHARDED_DECODE_SHARDS} shards): {f} bit-equal to the unsharded one")
+    require(int(sharded.resampled.sum()) > 0 and not bool(sharded.oom),
+            "sharded SMCDecoder: resampled (the exchange ran), oom False")
+    report["decode_resamples"] = int(sharded.resampled.sum())
+    del decoded, plain, sharded
+
+    for row in rows:
+        if row["name"] in SHARDED_OPS:
+            row["sharded_launches"] = report["launches"][row["name"]]
+            row["sharded_shapes"] = cases[row["name"]]
+    report["phase_s"] = time.perf_counter() - phase_t0
+    print(json.dumps({"sharded": report}), flush=True)
 
 
 def settle() -> None:
@@ -3135,6 +3545,10 @@ def main() -> int:
 
     # -- 13. an SMC fleet of two replicas against one, and its replay -------
     fleet_phase(dev, rows, *smc)
+    settle()
+
+    # -- 17. the sharded store, on phase 12's weights for its decoder --------
+    sharded_phase(dev, rate, rows, ys, *smc[:2])
     del smc
     settle()
 

@@ -34,6 +34,7 @@ __all__ = [
     "BlockPool",
     "init",
     "alloc",
+    "alloc_scan",
     "alloc_compact",
     "add_refs",
     "sub_refs",
@@ -41,8 +42,10 @@ __all__ = [
     "parent_or_self",
     "freeze",
     "write_blocks",
+    "read_blocks",
     "push_free_mask",
     "blocks_in_use",
+    "blocks_free",
     "grow",
     "next_capacity",
     "compact",
@@ -260,6 +263,32 @@ def alloc(
     return pool, out_ids
 
 
+def alloc_scan(
+    pool: BlockPool, n: int, commit: torch.Tensor | None = None
+) -> Tuple[BlockPool, torch.Tensor]:
+    """Debug/verify allocator: the O(num_blocks) scan.  Same contract as
+    :func:`alloc`; the candidates are the *lowest* free ids instead of the
+    stack's top, and the free stack is rebuilt canonically afterwards, so
+    the two allocators can interleave."""
+    dev = pool.refcount.device
+    if commit is None:
+        commit = torch.ones(n, dtype=torch.bool, device=dev)
+    free = _ascending(pool.refcount == 0)[:n]
+    if free.shape[0] < n:
+        pad = torch.full((n - free.shape[0],), NULL_BLOCK, dtype=I32, device=dev)
+        free = torch.cat([free, pad])
+    ok = (free >= 0) & commit
+    sids = _scatter_ids(pool.num_blocks, free, ok)
+    pool = pool._replace(
+        refcount=_add(pool.refcount, sids, torch.ones_like(sids)),
+        frozen=_set(pool.frozen, sids, False),
+        oom=pool.oom | torch.any(commit & (free < 0)),
+        parent=_set(pool.parent, sids, NULL_BLOCK),
+        dirty=_set(pool.dirty, sids, False),
+    )
+    return rebuild_free_stack(pool), torch.where(ok, free, NULL_BLOCK)
+
+
 def alloc_compact(
     pool: BlockPool, n: int, commit: torch.Tensor
 ) -> Tuple[BlockPool, torch.Tensor]:
@@ -366,9 +395,24 @@ def write_blocks(
     return pool._replace(data=data)
 
 
+def read_blocks(pool: BlockPool, ids: torch.Tensor) -> torch.Tensor:
+    """Gather whole blocks (``[*ids.shape, *block_shape]``); NULL ids read
+    block 0 (callers mask)."""
+    out = pool.data[_gather_ids(ids.reshape(-1))]
+    return out.reshape(tuple(ids.shape) + pool.block_shape)
+
+
 def blocks_in_use(pool: BlockPool) -> torch.Tensor:
     """Live blocks (0-dim int32) — the memory metric of Figures 5-7."""
     return _count(pool.refcount > 0)
+
+
+def blocks_free(pool: BlockPool) -> torch.Tensor:
+    """Allocation headroom (0-dim int32).  Per shard it is what the
+    sharded store watches: imports land as fresh blocks on the importing
+    shard, so a skewed resampling step spends headroom there while the
+    population's occupancy stays flat."""
+    return _count(pool.refcount == 0)
 
 
 # ---------------------------------------------------------------------------

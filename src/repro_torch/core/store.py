@@ -23,7 +23,6 @@ Differences from the reference:
   Pool bookkeeping (refcount, free stack, flags) is never mutated in
   place.
 * ``strict_oom`` is a host-side ``RuntimeError``.
-* ``import_trajectories`` (the sharded store's) is not ported.
 * The kernels run when the store lives on a CUDA device; there is no
   ``use_kernels`` switch.
 """
@@ -54,6 +53,7 @@ __all__ = [
     "clone",
     "clone_chain",
     "clone_partial",
+    "import_trajectories",
     "read_at",
     "read_last",
     "trajectory",
@@ -384,6 +384,41 @@ def clone_partial(
     pool = _clone_bookkeeping(cfg, store.pool, store.tables, new_tables)
     store = store._replace(pool=pool, tables=new_tables, lengths=lengths)
     return _bump_peak(cfg, store)
+
+
+def import_trajectories(
+    cfg: StoreConfig,
+    store: ParticleStore,
+    trajs: torch.Tensor,
+    new_lengths: torch.Tensor,
+    mask: torch.Tensor,
+) -> ParticleStore:
+    """Write dense trajectories (``trajs: [N, capacity, *item]``) into the
+    ``mask``-selected slots as fresh, exclusively owned storage: the
+    receiving half of the sharded store's exchange (the eager finish a
+    shard boundary forces).  Masked slots must already be empty (see
+    :func:`clone_partial`).  Each imported particle gets newly allocated
+    blocks (refcount 1), packed by rank onto the free stack
+    (``alloc_compact``) in the reference's order; under LAZY they join the
+    new generation frozen."""
+    if cfg.mode is CopyMode.EAGER:
+        dense = torch.where(_expand(mask, store.dense.dim()), trajs.to(store.dense.dtype), store.dense)
+        lengths = torch.where(mask, new_lengths.to(I32), store.lengths)
+        return _bump_peak(cfg, store._replace(dense=dense, lengths=lengths))
+
+    n, mb, bs = cfg.n, cfg.max_blocks, cfg.block_size
+    new_lengths = new_lengths.to(I32)
+    n_needed = -(-torch.clamp(new_lengths, min=0) // bs)  # ceil(len / bs)
+    slots = torch.arange(mb, dtype=I32, device=mask.device)
+    commit = (mask[:, None] & (slots[None, :] < n_needed[:, None])).reshape(-1)
+    pool, bids = pool_lib.alloc_compact(store.pool, n * mb, commit=commit)
+    payload = trajs.reshape(n * mb, bs, *cfg.item_shape)
+    pool = pool_lib.write_blocks(pool, bids, payload, mask=commit)
+    if cfg.mode is CopyMode.LAZY:
+        pool = pool_lib.freeze(pool, torch.where(commit, bids, NULL_BLOCK))
+    tables = torch.where(mask[:, None], bids.reshape(n, mb), store.tables)
+    lengths = torch.where(mask, new_lengths, store.lengths)
+    return _bump_peak(cfg, store._replace(pool=pool, tables=tables, lengths=lengths))
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,9 @@
 //
 // What bounds it on the card: operations (4 d flops per visible
 // (query, key) pair; at S = 4,096 the inputs are a few MB), so the
-// tensor cores.  The dtype picks one of two kernels:
+// tensor cores.  The dtype and head dim pick one of two kernels:
 //
-// * bf16: tensor cores (flash_wgmma below). A CTA owns 128 query rows of
+// * bf16 at d 64 and above: tensor cores (flash_wgmma below). A CTA owns 128 query rows of
 //   one (b, h) as two consumer warpgroups of 64 rows (64 rows and one
 //   consumer at d 256, whose 128-register O accumulator leaves no room for
 //   a second: two spill, and setmaxnreg did not lift ptxas' 168-register
@@ -41,13 +41,18 @@
 //   p.astype(v.dtype) at :78 is f32); scores, softmax and the accumulation
 //   stay f32. TMA needs 16-byte aligned bases and strides; ops.py raises
 //   on a view without them.
-// * f32: CUDA cores (flash_simt below), by choice and not as a fallback:
+// * f32, and bf16 at d 16 and 32: CUDA cores (flash_simt below), by choice and not as a fallback:
 //   the tensor cores take f32 only as TF32, whose 10-bit mantissa would
 //   break the f32 contract (atol 2e-5 against the plain version).  One
 //   CTA of 256 threads owns a (b, h, 64-query tile) with the softmax state
 //   in registers and 4 x 4 register tiles from shared memory.  It is
-//   built for d 16 and 32 too (the smoke configs' widths, f32 only), which
-//   the bf16 kernel is not.
+//   built for d 16 and 32 too (the smoke configs' widths), which the bf16
+//   kernel is not: one wgmma k-step is 16 wide and the K tile a 64-column
+//   swizzled box.  So bf16 at d 16 and 32 runs here as well
+//   (flash_simt<D, __nv_bfloat16>): bf16 loads widened to f32 as they
+//   reach shared memory, the output rounded to bf16 as it is stored, and
+//   everything between in f32 arithmetic.  P is not rounded to bf16 in
+//   this kernel, as it is in the tensor-core one.
 
 #include <cmath>
 #include <cstdint>
@@ -97,7 +102,18 @@ struct SimtTiles {
 // columns tx + 16j and output columns tx + 16jj.  A row's 16 threads are
 // one half-warp, so its max and sum are shuffle reductions and its P row
 // goes through shared memory with only a warp barrier.
-template <int D>
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+// T is the element type of q, k, v and out (float or __nv_bfloat16);
+// shared memory, scores, softmax and the accumulation are f32.
+template <int D, typename T>
 __global__ void __launch_bounds__(SIMT_THREADS) flash_simt(Args a) {
   using L = SimtTiles<D>;
   constexpr int BQ = SIMT_BQ;
@@ -117,14 +133,14 @@ __global__ void __launch_bounds__(SIMT_THREADS) flash_simt(Args a) {
   const int64_t hh = blockIdx.y, b = blockIdx.z;
   const int64_t kvh = hh / (a.h / a.kvh);
   const int64_t q0 = qt * BQ;
-  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + hh * a.q_sh;
-  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  float* out = static_cast<float*>(a.out) + b * a.o_sb + hh * a.o_sh;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + hh * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  T* out = static_cast<T*>(a.out) + b * a.o_sb + hh * a.o_sh;
 
   for (int e = tid; e < BQ * D; e += SIMT_THREADS) {
     const int r = e / D, c = e % D;
-    qs[r * L::QS + c] = q0 + r < a.sq ? q[(q0 + r) * a.q_ss + c] : 0.f;
+    qs[r * L::QS + c] = q0 + r < a.sq ? to_f32(q[(q0 + r) * a.q_ss + c]) : 0.f;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -146,8 +162,8 @@ __global__ void __launch_bounds__(SIMT_THREADS) flash_simt(Args a) {
     for (int e = tid; e < BK * D; e += SIMT_THREADS) {
       const int r = e / D, c = e % D;
       const bool in = k0 + r < a.sk;
-      ks[r * L::KS + c] = in ? k[(k0 + r) * a.k_ss + c] : 0.f;
-      vs[r * D + c] = in ? v[(k0 + r) * a.v_ss + c] : 0.f;
+      ks[r * L::KS + c] = in ? to_f32(k[(k0 + r) * a.k_ss + c]) : 0.f;
+      vs[r * D + c] = in ? to_f32(v[(k0 + r) * a.v_ss + c]) : 0.f;
     }
     __syncthreads();
 
@@ -226,19 +242,19 @@ __global__ void __launch_bounds__(SIMT_THREADS) flash_simt(Args a) {
     if (qpos >= a.sq) continue;
     const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) out[qpos * a.o_ss + tx + 16 * jj] = acc[i][jj] * inv;
+    for (int jj = 0; jj < DJ; ++jj) out[qpos * a.o_ss + tx + 16 * jj] = from_f32<T>(acc[i][jj] * inv);
   }
 }
 
-template <int D>
+template <int D, typename T = float>
 int launch_simt(const Args& a, int64_t b, cudaStream_t s) {
   const size_t bytes = SimtTiles<D>::smem_floats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(flash_simt<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((a.sq + SIMT_BQ - 1) / SIMT_BQ), static_cast<unsigned>(a.h),
                   static_cast<unsigned>(b));
-  flash_simt<D><<<grid, SIMT_THREADS, bytes, s>>>(a);
+  flash_simt<D, T><<<grid, SIMT_THREADS, bytes, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -679,8 +695,8 @@ int launch_wgmma(const Args& a, int64_t b, cudaStream_t s) {
 
 int dispatch(int64_t d, bool bf16, const Args& a, int64_t b, cudaStream_t s) {
   switch (d) {
-    case 16: return bf16 ? static_cast<int>(cudaErrorInvalidValue) : launch_simt<16>(a, b, s);
-    case 32: return bf16 ? static_cast<int>(cudaErrorInvalidValue) : launch_simt<32>(a, b, s);
+    case 16: return bf16 ? launch_simt<16, __nv_bfloat16>(a, b, s) : launch_simt<16>(a, b, s);
+    case 32: return bf16 ? launch_simt<32, __nv_bfloat16>(a, b, s) : launch_simt<32>(a, b, s);
     case 64: return bf16 ? launch_wgmma<64>(a, b, s) : launch_simt<64>(a, b, s);
     case 112: return bf16 ? launch_wgmma<112>(a, b, s) : launch_simt<112>(a, b, s);
     case 128: return bf16 ? launch_wgmma<128>(a, b, s) : launch_simt<128>(a, b, s);

@@ -4,10 +4,12 @@ as the reference's ``flash_attention/ops.py``.
 CUDA tensors launch ``csrc/flash_attention.cu``, which works in the
 ``[B, H, S, d]`` layout of the TPU kernel: it is handed the transposed
 views and their strides, so no layout copy is made, and it writes the
-``[B, S, H, d]`` output through the same kind of view.  bf16 inputs go to
-the tensor-core kernel, whose TMA loads need 16-byte aligned bases and
-strides (a view without them raises); f32 inputs to the CUDA-core
-kernel.  CPU tensors run :func:`flash_attention_ref` on the same views.
+``[B, S, H, d]`` output through the same kind of view.  bf16 inputs at
+head dim 64 and above go to the tensor-core kernel, whose TMA loads need
+16-byte aligned bases and strides (a view without them raises); f32
+inputs, and bf16 at head dims 16 and 32, to the CUDA-core kernel (bf16
+there is loaded into f32 and the arithmetic is f32: P is not rounded to
+bf16).  CPU tensors run :func:`flash_attention_ref` on the same views.
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dimensions the kernel is built for: those of the configs, and the
 #: smoke configs' 16 and 32
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
-#: those the bf16 tensor-core kernel takes: 16 and 32 are f32 only (the
-#: CUDA-core kernel), since no config runs bf16 at those widths
-BF16_HEAD_DIMS = (64, 112, 128, 256)
+#: those the bf16 tensor-core kernel takes (one wgmma k-step is 16 wide and
+#: a K tile a 64-column box); bf16 at 16 and 32 runs on the CUDA-core kernel
+WGMMA_HEAD_DIMS = (64, 112, 128, 256)
 
 
 def flash_attention(
@@ -56,11 +58,9 @@ def flash_attention(
         return flash_attention_ref(qt, kt, vt, scale=scale, window=window).transpose(1, 2)
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and d not in BF16_HEAD_DIMS:
-        raise ValueError(f"head dim {d} in bf16: the tensor-core kernel is built for {BF16_HEAD_DIMS}")
     if sk == 0:  # no key: every row writes 0, and TMA takes no empty extent
         return torch.zeros_like(q)
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
                 raise ValueError(f"{name}: TMA needs 16-byte aligned base and strides {t.stride()}")

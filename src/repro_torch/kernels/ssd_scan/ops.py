@@ -5,6 +5,15 @@ a pass over the chunks, both on the tensor cores) under the plan that
 :func:`card_plan` reads from the shapes; CPU tensors run
 :func:`ssd_scan_ref`.  Both return ``(y [B,S,H,P] f32, h_final
 [B,H,P,N] f32)``.
+
+The kernel takes the chunk as a multiple of 16; the wrapper takes any
+length the plain version does (S a multiple of ``min(chunk, S)``).  Where
+that chunk is not a multiple of 16 (S = 1, 20 or 40 at chunk 64), the
+card runs the chunk rounded up to 16 over a tail padded with ``dt = 0``
+(:func:`card_length`, :func:`pad_tail`): a padded step decays the state
+by ``exp(0 · a) = 1`` and adds ``0 · x B = 0``, so every output up to S
+and the final state are the unpadded scan's; the padded outputs are
+dropped.
 """
 
 from __future__ import annotations
@@ -81,6 +90,25 @@ def card_plan(b, s, h, p, n, q, dtype, *, heads=HEADS_PER_CTA, p_tile=None) -> d
     }
 
 
+def card_length(s: int, q: int) -> tuple[int, int]:
+    """``(padded length, chunk)`` the card runs for a scan of length ``s``
+    at chunk ``q = min(chunk, s)``: the chunk rounded up to a multiple of
+    16, the length up to a multiple of that chunk."""
+    qc = -(-q // 16) * 16
+    return -(-s // qc) * qc, qc
+
+
+def pad_tail(x, dt, bmat, cmat, s_pad: int):
+    """x, dt, bmat and cmat with zeros appended along the sequence axis up
+    to ``s_pad`` steps: ``dt = 0`` there, so the padded steps leave the
+    state as it was (and add no input)."""
+    def pad(t):
+        tail = t.new_zeros((t.shape[0], s_pad - t.shape[1], *t.shape[2:]))
+        return torch.cat([t, tail], dim=1)
+
+    return pad(x), pad(dt), pad(bmat), pad(cmat)
+
+
 def ssd_scan(
     x: torch.Tensor,  # [B, S, H, P]
     dt: torch.Tensor,  # [B, S, H] (post-softplus)
@@ -92,9 +120,10 @@ def ssd_scan(
 ):
     """Chunked SSD scan; returns (y [B,S,H,P] f32, h_final [B,H,P,N] f32).
     x, bmat and cmat are f32 or bf16 (one dtype); dt and a go in as f32.
-    On the card the chunk, P and N must be multiples of 16 and x, bmat
-    and cmat 16-byte aligned (``ValueError`` otherwise; :func:`card_plan`
-    gives the shared memory and the scratch)."""
+    On the card P and N must be multiples of 16 and x, bmat and cmat
+    16-byte aligned (``ValueError`` otherwise; :func:`card_plan` gives
+    the shared memory and the scratch); a chunk that is not a multiple of
+    16 runs rounded up over a ``dt = 0`` tail (:func:`card_length`)."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     check(x, "x", tuple(_DTYPES))
@@ -112,7 +141,13 @@ def ssd_scan(
     if not (b and h and s):
         return (torch.empty((b, s, h, p), dtype=torch.float32, device=x.device),
                 torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
-    out = card_call(x, dt, a, bmat, cmat, q)
+    s_pad, qc = card_length(s, q)
+    if s_pad == s:
+        out = card_call(x, dt, a, bmat, cmat, qc)
+    else:
+        xp, dtp, bp, cp = pad_tail(x, dt, bmat, cmat, s_pad)
+        y, hf = card_call(xp, dtp, a, bp, cp, qc)
+        out = y[:, :s].contiguous(), hf
     ssd_scan.launches += 1
     return out
 

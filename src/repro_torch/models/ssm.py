@@ -3,8 +3,9 @@
 
 The prefill path (:func:`ssm_layer`) hands the chunked scan to the
 registry's ``ssd_scan``: CUDA tensors launch ``csrc/ssd_scan.cu`` (on the
-card the chunk ``min(64, S)``, P and N must be multiples of 16, or it
-raises), CPU tensors run the plain version, whose ``ssd_chunked`` is the
+card P and N must be multiples of 16, or it raises; a chunk ``min(64, S)``
+that is not runs over a ``dt = 0`` tail padded to one that is), CPU
+tensors run the plain version, whose ``ssd_chunked`` is the
 port's one copy of the reference's.  The scan takes ``x``, ``B`` and
 ``C`` in float32, as the reference casts them (``ssd_chunked`` casts
 ``x``; ``B``/``C`` go in as float32), so the card multiplies them as

@@ -221,28 +221,31 @@ def card_against_cpu(
     return readings, card
 
 
-def dense_program(device: torch.device | str, arch: str) -> Tuple[List[torch.Tensor], DecodeCache]:
+def dense_program(
+    device: torch.device | str, arch: str, prompt_len: int = DENSE_PROMPT_LEN
+) -> Tuple[List[torch.Tensor], DecodeCache]:
     """The dense-cache program on ``device`` with ``arch``'s smoke config
     (float32, weights from ``SEED`` on the CPU): ``prefill`` of two
-    prompts, then ``DENSE_STEPS`` decode steps on fed tokens, all from
-    numpy's ``SEED + 10`` (and, vlm, image features).  Returns the
-    prefill's last-position logits and each step's, and the final cache."""
+    prompts of ``prompt_len`` tokens, then ``DENSE_STEPS`` decode steps on
+    fed tokens, all from numpy's ``SEED + 10`` (and, vlm, image features).
+    Returns the prefill's last-position logits and each step's, and the
+    final cache."""
     dev = torch.device(device)
     cfg = smoke_config(arch)
     lm = LanguageModel(cfg)
     params = cast_matrices(lm.init(torch.Generator().manual_seed(SEED), device="cpu"),
                            torch_dtype(cfg.dtype), dev)
     rng = np.random.default_rng(SEED + 10)
-    tokens = rng.integers(0, cfg.vocab_size, (PROMPTS, DENSE_PROMPT_LEN + DENSE_STEPS))
+    tokens = rng.integers(0, cfg.vocab_size, (PROMPTS, prompt_len + DENSE_STEPS))
     img = None
     if cfg.family == "vlm":
         img = torch.as_tensor(rng.standard_normal((PROMPTS, cfg.n_img_tokens, cfg.d_model)),
                               dtype=torch.float32, device=dev)
     tokens = torch.as_tensor(tokens, device=dev)
-    logits, cache = lm.prefill(params, tokens[:, :DENSE_PROMPT_LEN], DENSE_PROMPT_LEN + DENSE_STEPS, img)
+    logits, cache = lm.prefill(params, tokens[:, :prompt_len], prompt_len + DENSE_STEPS, img)
     out = [logits[:, -1]]
     for step in range(DENSE_STEPS):
-        at = DENSE_PROMPT_LEN + step
+        at = prompt_len + step
         logits, cache = lm.decode_step(params, tokens[:, at : at + 1], cache)
         out.append(logits)
     return out, cache
@@ -286,16 +289,19 @@ def dense_readings(
     return readings
 
 
-def dense_cache_card_against_cpu(device: torch.device | str = "cuda", arch: str = "gemma3_12b") -> Dict:
-    """The dense-cache program on the CPU and on ``device``.  Raises unless
+def dense_cache_card_against_cpu(
+    device: torch.device | str = "cuda", arch: str = "gemma3_12b", prompt_len: int = DENSE_PROMPT_LEN
+) -> Dict:
+    """The dense-cache program (prompts of ``prompt_len``) on the CPU and on
+    ``device``.  Raises unless
     every logit is within :func:`dense_tolerance` times its step's largest
     |logit| of the CPU's, every float cache leaf within the same times its
     largest |value|, the image features equal and the positions equal.
     Returns the readings."""
     tol = dense_tolerance(arch)
-    card = dense_program(device, arch)
-    readings = {"limit": tol, **dense_readings(dense_program("cpu", arch), card)}
-    _require(bool((card[1].position.cpu() == DENSE_PROMPT_LEN + DENSE_STEPS).all()), "the position after the program")
+    card = dense_program(device, arch, prompt_len)
+    readings = {"limit": tol, **dense_readings(dense_program("cpu", arch, prompt_len), card)}
+    _require(bool((card[1].position.cpu() == prompt_len + DENSE_STEPS).all()), "the position after the program")
     _require(readings["finite"], "finite logits and caches on the card")
     _require(readings["exact_leaves_equal"], "positions and image features equal")
     _require(readings["worst_diff_over_step_max"] <= tol,

@@ -287,7 +287,7 @@ class DecodeRequest:
     ess_threshold: float = 0.5
     token_copy_mode: CopyMode = CopyMode.LAZY_SR
     token_block_size: Optional[int] = None  # None -> engine block size
-    mesh: Optional[Any] = None  # raises: no sharded store yet
+    mesh: Optional[Any] = None  # a ShardMesh shards the token-history store
     arrive_at: int = 0
     deadline: Optional[int] = None
 
@@ -859,9 +859,10 @@ class Scheduler:
         for s in self._active:
             if s.trace is None or s.trace.cfg.mode is CopyMode.EAGER:
                 continue
-            st = s.trace.store
-            for p in pool_lib.check_invariants(st.pool, st.tables):
-                problems.append(f"trace pool ({s.req.rid!r}): {p}")
+            shards = s.trace.store.shards if s.req.mesh is not None else (s.trace.store,)
+            for st in shards:
+                for p in pool_lib.check_invariants(st.pool, st.tables):
+                    problems.append(f"trace pool ({s.req.rid!r}): {p}")
         return problems
 
     def _run_watchdog(self) -> None:
@@ -876,6 +877,8 @@ class Scheduler:
 
     def _req_ckpt(self, s: _ReqState) -> dict:
         req = s.req
+        if req.mesh is not None:
+            raise NotImplementedError("checkpoint of mesh-sharded token traces")
         return {
             "req": dataclasses.replace(
                 req, prompt=convert.to_numpy(req.prompt), gen=rnd.state(req.gen)
@@ -1330,6 +1333,13 @@ class Scheduler:
                 ess_threshold=s.req.ess_threshold,
             )
             if do_res:
+                if self.grow:
+                    # A sharded trace imports boundary crossers as fresh
+                    # blocks: size that demand, with the token's append,
+                    # before the clone runs.
+                    s.trace.ensure_clone_headroom(
+                        anc, self.grow_factor, ex=self._exec, extra=s.trace.append_need
+                    )
                 eng.fork_slots(s.lo, anc)  # zero-copy clone of KV lineages
                 # Fused resample -> clone of the token histories, drawing
                 # the same uniform from the snapshot taken before it.

@@ -21,8 +21,12 @@ Differences from the reference:
   taken before the resampling uniform, so the fused clone of the token
   histories draws that same uniform (the reference hands both the same
   key).
-* ``mesh=`` (the sharded token store) raises until the port has a
-  sharded store (ROADMAP.md queue 1, item 7).
+* ``mesh=`` takes a :class:`~repro_torch.distributed.ShardMesh` on the
+  decoder's device (a ``TypeError`` for anything else).  It shards the
+  token-history store (per-shard block pools, the boundary-only exchange
+  of :mod:`repro_torch.distributed.sharded_store`); the KV cache is not
+  sharded, as in the reference.  A sharded trace's clone is the
+  systematic draw followed by the exchange, not the fused kernel.
 * There is no ``use_store_kernels`` switch: the device decides.
 """
 
@@ -30,12 +34,15 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import random as rnd
 from repro_torch.core import store as store_lib
 from repro_torch.core.config import CopyMode
 from repro_torch.core.store import StoreConfig
+from repro_torch.distributed import sharded_store as sharded_lib
+from repro_torch.distributed.mesh import entry_device, require_mesh
 from repro_torch.models.layers import Params
 from repro_torch.models.model import LanguageModel
 from repro_torch.serving.engine import ServeEngine
@@ -46,14 +53,9 @@ from repro_torch.smc import resampling
 __all__ = ["SMCDecodeResult", "SMCDecoder", "smc_token_update"]
 
 
-def _no_mesh() -> NotImplementedError:
-    return NotImplementedError(
-        "a mesh-sharded token store is not ported yet (ROADMAP.md queue 1, item 7)"
-    )
-
-
 class _TokenTrace:
-    """Population token histories in a ParticleStore of int32 items."""
+    """Population token histories in a ParticleStore of int32 items, or
+    with a ``mesh`` in a sharded one (per-shard pools on the mesh)."""
 
     def __init__(
         self,
@@ -63,10 +65,10 @@ class _TokenTrace:
         block_size: int,
         mesh: Optional[Any] = None,
         *,
-        device: torch.device | str = "cuda",
+        device: torch.device | str | None = None,
     ):
-        if mesh is not None:
-            raise _no_mesh()
+        self.mesh = require_mesh(mesh)
+        device = entry_device(self.mesh, device)
         block_size = min(block_size, max(steps, 1))
         self.cfg = StoreConfig(
             mode=mode,
@@ -76,30 +78,70 @@ class _TokenTrace:
             item_shape=(),
             dtype="int32",
         )
-        self.store = store_lib.create(self.cfg, device)
+        if self.mesh is not None:
+            self.shcfg = sharded_lib.ShardedStoreConfig(
+                base=self.cfg, num_shards=self.mesh.num_shards, axis_name=self.mesh.axis_name
+            )
+            self.store = sharded_lib.create(self.shcfg, self.mesh)
+        else:
+            self.store = store_lib.create(self.cfg, device)
 
     def append(self, token: torch.Tensor) -> None:
-        self.store = store_lib.append(self.cfg, self.store, token)
+        if self.mesh is not None:
+            self.store = sharded_lib.append(self.shcfg, self.mesh, self.store, token)
+        else:
+            self.store = store_lib.append(self.cfg, self.store, token)
+
+    def clone(self, ancestors: torch.Tensor) -> None:
+        if self.mesh is not None:
+            self.store = sharded_lib.clone(self.shcfg, self.mesh, self.store, ancestors)
+        else:
+            self.store = store_lib.clone(self.cfg, self.store, ancestors)
 
     def clone_chain(self, gen: Any, logw: torch.Tensor) -> torch.Tensor:
         """Fused resample -> clone (``kernels/clone_chain``): draw one
         uniform from ``gen``, derive the systematic ancestors and clone the
-        histories in one pass over the tables; returns the ancestors."""
+        histories in one pass over the tables; returns the ancestors.  A
+        sharded trace draws the same ancestors
+        (``resampling.resample_systematic``) and clones through the
+        exchange."""
+        if self.mesh is not None:
+            ancestors = resampling.resample_systematic(gen, logw)
+            self.clone(ancestors)
+            return ancestors
         self.store, ancestors = store_lib.clone_chain(self.cfg, self.store, gen, logw)
         return ancestors
 
     def oom(self) -> bool:
+        if self.mesh is not None:
+            return bool(sharded_lib.oom_flag(self.shcfg, self.mesh, self.store))
         return bool(store_lib.oom_flag(self.cfg, self.store))
 
     @property
     def append_need(self) -> int:
-        """Worst-case blocks one append pops: one block per particle."""
-        return self.cfg.n
+        """Worst-case blocks one append pops (per shard): one block per
+        (local) particle."""
+        return self.shcfg.n_local if self.mesh is not None else self.cfg.n
 
     def pool_view(self) -> executor_lib.PoolView:
         """The executor's growth port over this trace: host-mutable (the
-        store lives on ``self``), capped at the dense bound (``cap=0``
-        under EAGER: there is no pool)."""
+        store lives on ``self``), per-shard lockstep for a sharded trace,
+        capped at the dense bound (``cap=0`` under EAGER: there is no
+        pool)."""
+        if self.mesh is not None:
+            shcfg, mesh = self.shcfg, self.mesh
+
+            def grow_sharded(carry, new_nb):
+                self.store = sharded_lib.grow(shcfg, mesh, self.store, new_nb)
+                return carry
+
+            return executor_lib.PoolView(
+                free=lambda _: sharded_lib.free_blocks(shcfg, mesh, self.store),
+                num_blocks=lambda _: sharded_lib.local_num_blocks(self.store),
+                cap=sharded_lib.lifecycle_cap(shcfg),
+                grow_to=grow_sharded,
+                oom=lambda _: sharded_lib.oom_flag(shcfg, mesh, self.store),
+            )
         cap = 0 if self.cfg.mode is CopyMode.EAGER else self.cfg.pool_blocks_cap
 
         def grow_to(carry, new_nb):
@@ -114,8 +156,50 @@ class _TokenTrace:
             oom=lambda _: store_lib.oom_flag(self.cfg, self.store),
         )
 
+    def ensure_clone_headroom(
+        self,
+        ancestors: torch.Tensor,
+        factor: float,
+        ex: Optional[executor_lib.PopulationExecutor] = None,
+        extra: int = 0,
+    ) -> int:
+        """Grow so the coming clone's cross-shard imports cannot run out
+        of blocks: :meth:`clone_import_demand` sizes the demand, the
+        executor's ``ensure`` applies the growth policy.  ``extra`` folds
+        the coming append's watermark into the same growth event; ``ex``
+        routes the event into a caller's stats.  Returns the growth events
+        (0 or 1)."""
+        demand = self.clone_import_demand(ancestors)
+        if demand <= 0:
+            return 0
+        ex = ex if ex is not None else executor_lib.PopulationExecutor()
+        start = ex.stats.grow_events
+        ex.ensure(self.pool_view(), None, demand + extra, factor)
+        return ex.stats.grow_events - start
+
+    def clone_import_demand(self, ancestors: torch.Tensor) -> int:
+        """The worst shard's block demand of the coming clone's imports:
+        0 unsharded (a clone moves refcounts, never allocates) and under
+        EAGER; else, per shard, the blocks of the trajectories its
+        boundary crossers import, from the replicated ancestors and the
+        current lengths, before the clone runs (the clone releases the old
+        generation first, so there is at least as much room then)."""
+        if self.mesh is None or self.cfg.mode is CopyMode.EAGER:
+            return 0
+        S, nl, bs = self.shcfg.num_shards, self.shcfg.n_local, self.cfg.block_size
+        anc = ancestors.cpu().numpy()
+        lengths = sharded_lib.gather_global(
+            self.mesh, [st.lengths for st in self.store.shards]
+        ).cpu().numpy()
+        slot_shard = np.arange(self.cfg.n) // nl
+        cross = (anc // nl) != slot_shard
+        blocks = -(-np.maximum(lengths[anc], 0) // bs)
+        return int(max(blocks[cross & (slot_shard == s)].sum() for s in range(S)))
+
     def tokens(self, steps: int) -> torch.Tensor:
         """Materialize all histories: ``[N, steps]`` int32."""
+        if self.mesh is not None:
+            return sharded_lib.trajectories(self.shcfg, self.mesh, self.store)[:, :steps]
         ids = torch.arange(self.cfg.n, dtype=torch.int32, device=self.store.tables.device)
         return store_lib.materialize_batch(self.cfg, self.store, ids)[:, :steps]
 
@@ -199,10 +283,10 @@ class SMCDecoder:
         grow_stores: bool = True,
         grow_factor: float = 2.0,
         kv_delta_cow: bool = False,
-        device: torch.device | str = "cuda",
+        device: torch.device | str | None = None,
     ):
-        if mesh is not None:
-            raise _no_mesh()
+        mesh = require_mesh(mesh)
+        device = entry_device(mesh, device)
         cfg = lm.cfg
         cache_cfg = KVCacheConfig(
             n_layers=cfg.n_layers,

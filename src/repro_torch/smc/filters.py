@@ -18,9 +18,20 @@ Differences from the reference:
   SSM's draws, and any alive-filter redraws — so ``log_evidence`` is
   bit-identical across modes.  SSM callables take that generator where
   the reference's take a key.
-* ``FilterConfig.mesh`` raises ``NotImplementedError`` (the sharded
-  store is not ported), and there is no ``use_kernels``: the device
-  decides.
+* ``FilterConfig.mesh`` takes a
+  :class:`~repro_torch.distributed.ShardMesh` (a ``TypeError`` for
+  anything else); there is no ``use_kernels``: the device decides.
+
+Setting ``FilterConfig.mesh`` splits N over the mesh's shards
+(:meth:`ParticleFilter._run_sharded`, DESIGN.md §6): an independent
+block pool per shard (:mod:`repro_torch.distributed.sharded_store`),
+resampling on the gathered ``[N]`` log-weights, and only the
+trajectories whose ancestor lives on another shard materialized and
+exchanged.  Draws follow the reference's structure
+(:class:`~repro_torch.distributed.ShardStreams`): the resampling
+uniforms from one shared stream, each shard's init and propagation
+noise from its own; a 1-shard mesh draws from the single-device stream,
+so it is bit-exact with the single-device run.
 """
 
 from __future__ import annotations
@@ -34,7 +45,8 @@ import torch
 from repro_torch.core import store as store_lib
 from repro_torch.core.config import CopyMode
 from repro_torch.core.store import ParticleStore, StoreConfig
-from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.distributed import sharded_store as sharded_lib
+from repro_torch.distributed.mesh import entry_device, require_mesh
 from repro_torch.smc import executor as executor_lib
 from repro_torch.smc import resampling
 from repro_torch.smc.executor import tree_map
@@ -81,7 +93,13 @@ class FilterConfig:
     pool_blocks: int = 0  # 0 = auto
     max_retries: int = 0  # alive-filter retries (0 = plain PF)
     dtype: str = "float32"
-    mesh: Any = None  # multi-device scaling: not ported (raises)
+    # Scale-out over shards: a repro_torch.distributed.ShardMesh splits
+    # the N particles over its ``data_axes`` axis, each shard with its own
+    # block pool; only boundary-crossing trajectories are exchanged.  A
+    # 1-shard mesh is bit-exact with the single-device path.
+    mesh: Any = None
+    data_axes: str = "shards"  # mesh axis carrying the population
+    max_exports: int = 0  # per-shard exchange slots; 0 = n_local (safe)
     # Pool lifecycle: run the generations in chunks with a host-side
     # headroom / OOM check between them, growing the pool instead of
     # sticking its oom flag; capped at StoreConfig.pool_blocks_cap.
@@ -107,6 +125,9 @@ class FilterConfig:
 
 
 class FilterResult(NamedTuple):
+    # Under a mesh, a repro_torch.distributed.ShardedStore (read it through
+    # sharded_store.trajectories; sharded_store.stacked gives the
+    # reference's global view), and ``state`` the gathered global state.
     store: ParticleStore
     state: Any
     log_weights: torch.Tensor  # [N], normalized
@@ -130,22 +151,34 @@ class ParticleFilter:
     the COW store, driven by a :class:`PopulationExecutor`.
 
     ``device`` defaults to the GPU and raises when none is present; pass
-    ``device="cpu"`` for the plain PyTorch path.
+    ``device="cpu"`` for the plain PyTorch path.  Under a mesh the filter
+    runs on the mesh's device (``device``, if given, must be it).
     """
 
     def __init__(
-        self, ssm: SSMDef, config: FilterConfig, device: torch.device | str = "cuda"
+        self, ssm: SSMDef, config: FilterConfig, device: torch.device | str | None = None
     ):
-        if config.mesh is not None:
-            raise NotImplementedError(
-                "sharded filtering (FilterConfig.mesh) is not ported yet"
-            )
-        self.device = resolve_device(device)
+        mesh = require_mesh(config.mesh)
         self.ssm = ssm
         self.config = config
         self.store_cfg = config.store_config(ssm.record_shape)
         self._resample = resampling.RESAMPLERS[config.resampler]
         self._exec = executor_lib.PopulationExecutor()
+        self.device = entry_device(mesh, device)
+        self.sharded_cfg: Optional[sharded_lib.ShardedStoreConfig] = None
+        if mesh is None:
+            return
+        if ssm.lookahead is not None or (ssm.alive is not None and config.max_retries > 0):
+            raise NotImplementedError(
+                "sharded filtering covers the bootstrap path; auxiliary lookahead and "
+                "alive-filter retries are single-device only"
+            )
+        self.sharded_cfg = sharded_lib.ShardedStoreConfig(
+            base=self.store_cfg,
+            num_shards=mesh.shape[config.data_axes],
+            axis_name=config.data_axes,
+            max_exports=config.max_exports,
+        )
 
     @property
     def executor(self) -> executor_lib.PopulationExecutor:
@@ -187,6 +220,8 @@ class ParticleFilter:
         simulate: bool,
         csmc: Optional[Tuple[torch.Tensor, bool]] = None,
     ) -> FilterResult:
+        if self.sharded_cfg is not None:
+            return self._run_sharded(gen, params, observations, simulate, csmc)
         cfg, ssm, scfg = self.config, self.ssm, self.store_cfg
         n, dev = cfg.n_particles, self.device
         observations = tree_map(_float32, _as_tensors(observations, dev))
@@ -198,7 +233,7 @@ class ParticleFilter:
 
         chunk = self._exec.jit_chunk(
             ("local", bool(simulate), csmc is not None),
-            lambda: self._build_chunk(simulate),
+            lambda: self._build_chunk(self._make_step, simulate),
         )
         chunk_fn = lambda c, ts: chunk(c, ts, params, observations, csmc)  # noqa: E731
 
@@ -234,12 +269,13 @@ class ParticleFilter:
             grew=torch.tensor(grew, dtype=torch.int32, device=dev),
         )
 
-    def _build_chunk(self, simulate: bool):
+    def _build_chunk(self, make_step, simulate: bool):
         """The generation chunk ``(carry, ts, params, observations, csmc)
-        -> (carry, (ess [g], resampled [g], used [g]))``."""
+        -> (carry, (ess [g], resampled [g], used [g]))`` over the steps of
+        ``make_step`` (:meth:`_make_step` or :meth:`_make_sharded_step`)."""
 
         def chunk(carry, ts, params, observations, csmc):
-            step = self._make_step(params, observations, simulate, csmc)
+            step = make_step(params, observations, simulate, csmc)
             outs = []
             for t in ts:
                 carry, out = step(carry, t)
@@ -252,6 +288,147 @@ class ParticleFilter:
             return carry, (torch.stack(ess_t), did, torch.stack(used_t))
 
         return chunk
+
+    def _run_sharded(
+        self,
+        gen: Any,
+        params: Any,
+        observations: Any,
+        simulate: bool,
+        csmc: Optional[Tuple[torch.Tensor, bool]] = None,
+    ) -> FilterResult:
+        """The filter over a shard mesh (DESIGN.md §6), on the same
+        executor loop as :meth:`_run`, operation for operation: with one
+        shard every collective is the identity and the same generator
+        draws in the same order, so the result is bit-exact with the
+        single-device run.
+
+        Carry: ``(streams, states, store, logw, logz)`` with one state per
+        shard this process holds, the :class:`ShardedStore`, and the
+        global normalized ``[N]`` log-weights (the same on every shard).
+        Under ``FilterConfig.grow`` the pools grow in lockstep on the
+        worst shard's headroom: imports land on the importing shard, so a
+        skewed resampling step can spend one shard's headroom alone.
+        """
+        cfg, ssm, shcfg, mesh = self.config, self.ssm, self.sharded_cfg, self.config.mesh
+        n, nl, dev = cfg.n_particles, shcfg.n_local, self.device
+        observations = tree_map(_float32, _as_tensors(observations, dev))
+
+        streams = mesh.streams(gen)
+        states = tuple(ssm.init(g, nl, params) for g in streams.shards)
+        store0 = sharded_lib.create(shcfg, mesh)
+        logw0 = torch.full((n,), -math.log(n), dtype=torch.float32, device=dev)
+        init_carry = (streams, states, store0, logw0, torch.zeros((), device=dev))
+
+        chunk = self._exec.jit_chunk(
+            ("sharded", bool(simulate), csmc is not None),
+            lambda: self._build_chunk(self._make_sharded_step, simulate),
+        )
+        chunk_fn = lambda c, ts: chunk(c, ts, params, observations, csmc)  # noqa: E731
+        pool = executor_lib.PoolView(
+            free=lambda c: sharded_lib.free_blocks(shcfg, mesh, c[2]),  # worst shard
+            num_blocks=lambda c: sharded_lib.local_num_blocks(c[2]),
+            cap=sharded_lib.lifecycle_cap(shcfg),
+            grow_to=lambda c, nb: (c[0], c[1], sharded_lib.grow(shcfg, mesh, c[2], nb), c[3], c[4]),
+            oom=lambda c: sharded_lib.oom_flag(shcfg, mesh, c[2]),
+        )
+        carry, outs, grew = self._exec.run(
+            init_carry,
+            n_steps=cfg.n_steps,
+            chunk_fn=chunk_fn,
+            policy=cfg.growth_policy(),
+            need_per_step=nl,
+            pool=pool,
+        )
+        _, states, store, logw, logz = carry
+        ess_trace, resampled, used_trace = executor_lib.concat_chunk_outs(
+            outs, executor_lib.filter_empty_outs(dev)
+        )
+        return FilterResult(
+            store=store,
+            state=self._gather_states(states),
+            log_weights=logw,
+            log_evidence=logz,
+            ess_trace=ess_trace,
+            resampled=resampled,
+            used_blocks_trace=used_trace,
+            oom=sharded_lib.oom_flag(shcfg, mesh, store),
+            grew=torch.tensor(grew, dtype=torch.int32, device=dev),
+        )
+
+    def _gather_states(self, states: Tuple[Any, ...]) -> Any:
+        """The global state: each tensor leaf gathered shard-major along
+        its leading (particle) axis; other leaves as shard 0's."""
+        mesh = self.config.mesh
+
+        def gather(*leaves):
+            if isinstance(leaves[0], torch.Tensor):
+                return mesh.all_gather(leaves)
+            return leaves[0]
+
+        return tree_map(gather, *states)
+
+    def _make_sharded_step(self, params, observations, simulate, csmc=None):
+        """The per-generation step over the shards (the twin of
+        :meth:`_make_step`).  ``csmc`` pins the reference lineage: the
+        ancestor pin is global, the record and state pin apply on shard 0,
+        where global particle 0 lives."""
+        cfg, ssm, shcfg, mesh = self.config, self.ssm, self.sharded_cfg, self.config.mesh
+        n, nl, dev = cfg.n_particles, shcfg.n_local, self.device
+        local = shcfg.local
+        clone_state = ssm.clone_state or _default_clone
+        uniform_logw = torch.full((n,), -math.log(n), dtype=torch.float32, device=dev)
+        pin = csmc is not None and csmc[1]
+
+        def clone_states(states, ancestors):
+            # Every shard clones the gathered state under the global
+            # ancestors and keeps its own slice (a copy: in-process shards
+            # share no tensor).
+            cloned = clone_state(self._gather_states(states), ancestors)
+            return tuple(
+                tree_map(
+                    lambda x, s=s: x[s * nl : (s + 1) * nl].clone() if isinstance(x, torch.Tensor) else x,
+                    cloned,
+                )
+                for s in mesh.shard_ids
+            )
+
+        def step(carry, t):
+            streams, states, store, logw, logz = carry
+            did = False
+            if not simulate and t > 0 and (
+                cfg.always_resample or bool(resampling.should_resample(logw, cfg.ess_threshold))
+            ):
+                ancestors = self._resample(streams.shared, logw)  # the same on every shard
+                if pin:
+                    ancestors = ancestors.clone()
+                    ancestors[0] = 0
+                states = clone_states(states, ancestors)
+                store = sharded_lib.sharded_clone(shcfg, mesh, store, ancestors)
+                logw, did = uniform_logw, True
+            obs_t = tree_map(lambda o: o[t], observations)
+            new_states, lws, shards = [], [], []
+            for s, g, state, st in zip(mesh.shard_ids, streams.shards, states, store.shards, strict=True):
+                state, dlogw, record = ssm.step(g, state, t, obs_t, params)
+                if simulate:
+                    dlogw = torch.zeros_like(dlogw)
+                if pin and s == 0:
+                    ref_t = csmc[0][t]
+                    record = record.clone()
+                    record[0] = ref_t
+                    state = ssm.set_reference(state, ref_t)
+                new_states.append(state)
+                lws.append(logw[s * nl : (s + 1) * nl] + dlogw)
+                shards.append(store_lib.append(local, st, record))
+            lw = mesh.all_gather(lws)
+            logz = logz + torch.logsumexp(lw, 0)
+            logw = resampling.normalize(lw)
+            store = sharded_lib.ShardedStore(tuple(shards))
+            used = sharded_lib.used_blocks_per_shard(shcfg, mesh, store).sum(dtype=torch.int32)
+            out = (resampling.ess(logw), did, used)
+            return (streams, tuple(new_states), store, logw, logz), out
+
+        return step
 
     def _make_step(self, params, observations, simulate, csmc=None):
         """The per-generation step; ``csmc`` is ``(reference, use_ref)``."""

@@ -27,7 +27,7 @@ from repro_torch.kernels.clone_chain import clone_chain_kernel, weights_cdf  # n
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
 from repro_torch.kernels.cow_write import cow_write, cow_write_delta  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import BF16_HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import WGMMA_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.refcount_update import refcount_delta  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
@@ -102,8 +102,21 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
+    """A mesh that is not the port's ShardMesh is refused; the port's own
+    builds both mesh entry points (the filter, the SMC decoder) on the CPU."""
+    from repro_torch.configs.starcoder2_3b import SMOKE
+    from repro_torch.distributed import ShardMesh
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.serving.smc_decode import SMCDecoder
+
+    with pytest.raises(TypeError, match="ShardMesh"):
         ParticleFilter(lgssm(), FilterConfig(n_particles=4, n_steps=4, mesh=object()), device="cpu")
+    mesh = ShardMesh.in_process(2, "cpu")
+    pf = ParticleFilter(lgssm(), FilterConfig(n_particles=4, n_steps=4, mesh=mesh))
+    assert pf.device.type == "cpu" and pf.sharded_cfg.num_shards == 2
+    lm = LanguageModel(SMOKE)
+    dec = SMCDecoder(lm, lm.init(rnd.generator(0, "cpu"), device="cpu"), 4, max_len=16, mesh=mesh)
+    assert dec.engine.device.type == "cpu" and dec.mesh is mesh
     with pytest.raises(ValueError):
         tstore.create(tstore.StoreConfig(mode=CopyMode.LAZY, n=2, block_size=2, max_blocks=2), device="meta")
 
@@ -455,7 +468,7 @@ class TestKernelsOnCard:
         got = systematic_comb(padded[1:], u.to(cuda_device)).cpu()
         assert torch.equal(got, systematic_comb(cum, u))
 
-    @pytest.mark.parametrize("d", BF16_HEAD_DIMS)
+    @pytest.mark.parametrize("d", WGMMA_HEAD_DIMS)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("window", [0, 45])
     def test_flash_attention(self, cuda_device, d, dtype, window):
@@ -464,7 +477,7 @@ class TestKernelsOnCard:
         within its rounding bound, f32 2e-5 (sums in another order)."""
         check_flash(rnd.generator(d + window, cuda_device), (2, 200, 6, 2, d), dtype, window)
 
-    @pytest.mark.parametrize("d", BF16_HEAD_DIMS)
+    @pytest.mark.parametrize("d", WGMMA_HEAD_DIMS)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("window", [0, 45, 1000])
     @pytest.mark.parametrize("b,s,h,kvh", [(1, 1, 4, 4), (3, 63, 3, 1), (1, 300, 8, 1), (3, 130, 16, 2)])
@@ -523,13 +536,22 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("p,n,chunk", [(24, 32, 64), (32, 40, 64), (32, 32, 24)])
     def test_ssd_scan_refuses_unaligned_widths(self, cuda_device, p, n, chunk):
-        """P, N or the chunk not a multiple of 16 raises on the card; the
-        plain version is never run in its place."""
+        """P or N not a multiple of 16 raises on the card; the plain version
+        is never run in its place.  A chunk that is not (24) runs rounded up
+        to 32 (over a ``dt = 0`` tail where S needs one), one launch, within
+        2e-4 of the CPU path at the chunk asked for."""
         args = ssd_inputs(rnd.generator(12, cuda_device), 1, 192, 2, p, n, torch.float32, cuda_device)
         before = ssd_scan.launches
-        with pytest.raises(ValueError, match="multiples of 16"):
-            ssd_scan(*args, chunk=chunk)
-        assert ssd_scan.launches == before
+        if p % 16 or n % 16:
+            with pytest.raises(ValueError, match="multiples of 16"):
+                ssd_scan(*args, chunk=chunk)
+            assert ssd_scan.launches == before
+            return
+        y, h = ssd_scan(*args, chunk=chunk)
+        assert ssd_scan.launches == before + 1
+        yr, hr = ssd_scan(*[a.cpu() for a in args], chunk=chunk)
+        torch.testing.assert_close(y.cpu(), yr, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(h.cpu(), hr, rtol=2e-4, atol=2e-4)
 
     def test_refcount_delta(self, cuda_device):
         rng = np.random.default_rng(1)

@@ -134,7 +134,7 @@ def test_requires_set_reference_and_refuses_a_mesh():
     ssm, _ = vbd.build()
     with pytest.raises(ValueError):
         ParticleGibbs(ssm._replace(set_reference=None), FilterConfig(n_particles=4, n_steps=4), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ShardMesh"):
         ParticleGibbs(ssm, FilterConfig(n_particles=4, n_steps=4, mesh=object()), device="cpu")
 
 

@@ -170,8 +170,14 @@ def test_token_update_draws_the_resampling_uniform_once():
 
 
 def test_token_trace_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    """A mesh that is not the port's ShardMesh is refused; the port's own
+    shards the trace."""
+    from repro_torch.distributed import ShardMesh
+
+    with pytest.raises(TypeError, match="ShardMesh"):
         _TokenTrace(4, 4, CopyMode.LAZY_SR, 4, mesh=object(), device="cpu")
+    tr = _TokenTrace(4, 4, CopyMode.LAZY_SR, 4, mesh=ShardMesh.in_process(2, "cpu"))
+    assert len(tr.store.shards) == 2 and tr.append_need == 2
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +290,7 @@ def test_device_policy(weights):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SMCDecoder(LanguageModel(SMOKE), tparams, 4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         SMCDecoder(LanguageModel(SMOKE), tparams, 4, mesh=object(), device="cpu")
 
 

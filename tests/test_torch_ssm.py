@@ -203,13 +203,20 @@ def test_ssm_layer_on_card_matches_cpu(cuda_device, arch, s):
 
 @pytest.mark.cuda
 def test_ssm_layer_on_card_refuses_a_length_the_chunk_rules_exclude(cuda_device):
-    """S = 40: the chunk min(64, 40) is no multiple of 16, so the card
-    raises rather than padding or running the plain version."""
-    cfg = configs.smoke_config("mamba2_130m")
+    """S = 40: the chunk min(64, 40) is no multiple of 16, and the card is
+    not refused: ``ssd_scan`` runs the chunk 48 over a ``dt = 0`` tail (one
+    launch, no plain version), within 2e-4 of the CPU path's largest
+    |value|, as the lengths above."""
+    from repro_torch.kernels import dispatch
     from repro_torch.models.model import LanguageModel
 
+    cfg = configs.smoke_config("mamba2_130m")
     params = LanguageModel(cfg).init(torch.Generator().manual_seed(0), device="cpu")
-    p = {k: v.to(cuda_device) for k, v in layer_params(params["blocks"], 0)["ssm"].items()}
-    x = torch.randn((1, 40, cfg.d_model), device=cuda_device)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        tssm.ssm_layer(p, x, cfg)
+    p = layer_params(params["blocks"], 0)["ssm"]
+    x = torch.as_tensor(inputs("mamba2_130m", 40, seed=40, b=1))
+    want, wcache = tssm.ssm_layer(p, x, cfg)
+    before = dispatch.get_op("ssd_scan").launches
+    got, gcache = tssm.ssm_layer({k: v.to(cuda_device) for k, v in p.items()}, x.to(cuda_device), cfg)
+    assert dispatch.get_op("ssd_scan").launches == before + 1
+    close_to_scale(got.cpu(), want, 2e-4)
+    close_to_scale(gcache.state.cpu(), wcache.state, 2e-4)
