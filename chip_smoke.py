@@ -286,11 +286,45 @@ Phases (any failed check raises, and the script exits non-zero):
     the three rows take the path's launches as ``sharded_launches`` and
     its calls' times as ``sharded_shapes``.
 
+18. Training (run after phase 16), with the counters set to 0 just
+    before each path and read just after.  (a) Each backward kernel
+    against its plain version (autograd of the plain forward) on the
+    card: ``flash_attention_bwd`` in bf16 at starcoder2-3b's training
+    shape (2 x 4,096, 24 heads over 2, d 128), at gemma3-12b's local
+    layer (1 x 4,096, 16 over 8, d 256, window 1,024) and in f32 at d 16
+    and 32 (2 x 512, 8 over 2); ``ssd_scan_bwd`` in f32 at mamba2-130m's
+    heads (2 x 4,096, 24 heads, P 64, N 128, chunk 64, with the final
+    state's gradient).  Each gradient within ``BWD_TOL`` (f32 1e-4, bf16
+    2e-2) of its plain version's largest magnitude, two planted faults per
+    case (flash: the last query tile's dO dropped, the first key tile's K
+    zeroed; SSD: B and C rounded to bf16, the last chunk's dy dropped)
+    reading above that limit, two calls bit-equal.  (b) Their times, the
+    plain versions', the bound (bytes over the memory rate or 2.5 times
+    the forward's flops over the type's peak) and, for flash, SDPA's
+    backward and both forward-plus-backward pairs.  (c) mamba2-130m uncut
+    through ``python -m repro_torch.launch.train --full``'s ``main``
+    (sequence 4,096, global batch 8 in 4 microbatches of 2, f32 master
+    weights, 6 steps, a checkpoint at step 3, the corpus drawn from 4,096
+    of its 50,280 tokens) under ``torch.use_deterministic_algorithms``,
+    then the same run crashed at step 4 and relaunched: the resumed losses
+    and the final params and moments bit-equal to the uninterrupted run's;
+    ``ssd_scan_bwd`` once and ``ssd_scan`` twice a layer a microbatch
+    (remat).  (d) starcoder2-3b at its published widths through
+    ``make_train_step`` (the bf16 compute copy, bf16 gradients, per-layer
+    remat, one microbatch of 2 x 4,096, 3 steps): finite losses and grad
+    norms, ``flash_attention_bwd`` once and ``flash_attention`` twice a
+    layer a step, the peak memory.  (e) The smoke configs of the seven
+    families, one ``make_train_step`` each on the card and on the CPU
+    from the same params and batch, within ``SMOKE_TRAIN_TOL``.  Prints
+    ``{"train": ...}`` (step walls, tokens a second, peak memory,
+    launches by kernel) and adds the ``flash_attention_bwd`` and
+    ``ssd_scan_bwd`` rows.
+
 Phase 14 runs PCFG at T = 2,000 (``PROGRAM_T``; the paper's 3,262 is
 its ``PAPER_T``), so the script keeps within its time budget.
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
-``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"sharded": ...}``, ``{"programs": ...}``, ``{"families": ...}``, ``{"dense_cache": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
+``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"sharded": ...}``, ``{"programs": ...}``, ``{"families": ...}``, ``{"dense_cache": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -302,6 +336,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -309,8 +344,12 @@ import time
 from collections import deque
 from pathlib import Path
 
-import numpy as np
-import torch
+# Phase 18 runs under torch.use_deterministic_algorithms(True), whose cuBLAS
+# calls need a fixed workspace, set before CUDA is first initialised.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 A, Q, R = 0.9, 0.5, 0.3
@@ -3236,6 +3275,386 @@ def sharded_phase(dev, rate, rows, ys, lm, weights) -> None:
     print(json.dumps({"sharded": report}), flush=True)
 
 
+# Phase 18: training.  The backward kernels against their plain versions at
+# the shapes of the models' training steps, then mamba2-130m through
+# Trainer (launch/train.py), starcoder2-3b through make_train_step at its
+# published widths, and the smoke families card against the CPU.
+TRAIN_FLASH_CASES = (  # (what, [B, S, H, KVH, d], dtype, window)
+    ("starcoder2-3b", (2, 4096, 24, 2, 128), torch.bfloat16, 0),
+    ("gemma3-12b local layer", (1, 4096, 16, 8, 256), torch.bfloat16, 1024),
+    ("f32 d 16", (2, 512, 8, 2, 16), torch.float32, 0),
+    ("f32 d 32", (2, 512, 8, 2, 32), torch.float32, 0),
+)
+# mamba2-130m's 24 heads, P 64, N 128, chunk 64, f32, at a training
+# microbatch of 2 x 4,096.
+TRAIN_SSD_SHAPE = (2, 4096, 24, 64, 128)
+# Each gradient within this share of its plain version's largest magnitude:
+# f32 sums of up to S terms in another order; bf16 inputs and outputs (the
+# forward check's 2e-2).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# mamba2-130m through Trainer: sequence 4,096, global batch 8 in 4
+# microbatches of 2, f32 master weights, 6 steps, a checkpoint at step 3,
+# then a crash at step 4 and a relaunch.  The synthetic corpus draws from
+# 4,096 of the model's 50,280 tokens: its transition matrix is
+# vocabulary-squared (20 GB of host memory at the full vocabulary).
+TRAIN_CELL = {"arch": "mamba2_130m", "seq": 4096, "batch": 8, "micro": 4, "steps": 6, "every": 3,
+              "crash_at": 4, "data_vocab": 4096}
+# starcoder2-3b at its published widths: one microbatch of 2 x 4,096, 3 steps.
+BIG_TRAIN = {"arch": "starcoder2_3b", "batch": 2, "seq": 4096, "steps": 3}
+TRAIN_FAMILIES = ("starcoder2_3b", "mamba2_130m", "zamba2_7b", "gemma3_12b", "deepseek_moe_16b",
+                  "musicgen_large", "llama32_vision_90b")
+SMOKE_TRAIN = (4, 64)  # batch, sequence of the smoke families' step
+# Card against CPU at smoke width (f32): the loss to 1e-5 and the grad norm
+# to 1e-4 of their CPU values; the first moment (0.1 x the clipped
+# gradient) within 1e-3 of its largest magnitude (the card's SSD forward
+# multiplies on the tensor cores in TF32); the updated params within 1e-2
+# of the learning rate wherever |mu| is above 1e-2 of its largest (the
+# first Adam step moves a param by about lr whatever |g| is, so only where
+# the gradient's sign is clear).
+SMOKE_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "mu": 1e-3, "param_over_lr": 1e-2, "mu_floor": 1e-2}
+TRAIN_OPS = ("flash_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
+
+
+def grad_ratio(got, want) -> float:
+    """The worst |got - want| of each gradient over its plain version's
+    largest magnitude (or a hundredth of the call's largest gradient where
+    that is more: a gradient that is 0 in exact arithmetic reads the
+    rounding of the forward's output, as ``tests/test_torch_boundaries.py``'s
+    ``grads_within``)."""
+    largest = max(w.abs().max().item() for w in want if w.numel())
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if w.numel():
+            worst = max(worst, (g.float() - w.float()).abs().max().item()
+                        / max(w.abs().max().item(), 1e-2 * largest))
+    return worst
+
+
+def flash_bwd_case(dev, rate, gen, what, shape, dtype, window) -> dict:
+    """flash_attention_bwd against its plain version (autograd of the plain
+    forward) on the card, a repeat call bit-equal, two planted faults above
+    the limit; its time, the plain version's, SDPA's backward and the bound;
+    flash's forward plus backward against SDPA's."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd, flash_attention_bwd_ref
+
+    b, s, h, kvh, d = shape
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    out = flash_attention(q, k, v, window=window)
+    got = flash_attention_bwd(q, k, v, out, dout, window=window)
+    again = flash_attention_bwd(q, k, v, out, dout, window=window)
+    require(all(torch.equal(x, y) for x, y in zip(got, again, strict=True)), f"{what}: two calls bit-equal")
+    del again
+    want = flash_attention_bwd_ref(q, k, v, dout, window=window)
+    tol = BWD_TOL[dtype]
+    ratio = grad_ratio(got, want) / tol
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want, strict=True))
+    require(all(bool(torch.isfinite(g).all()) for g in got), f"{what}: finite gradients")
+    require(ratio <= 1.0, f"{what}: within {tol} of its plain version ({ratio} of the limit)")
+    faults = {}
+    bad = dout.clone()
+    bad[:, -64:] = 0
+    faults["last query tile's dO dropped"] = grad_ratio(flash_attention_bwd_ref(q, k, v, bad, window=window), want) / tol
+    bad = k.clone()
+    bad[:, :64] = 0
+    faults["first key tile's K zeroed"] = grad_ratio(flash_attention_bwd_ref(q, bad, v, dout, window=window), want) / tol
+    del bad, want, got
+    require(min(faults.values()) > 1.0, f"{what}: the check rejects each planted fault {faults}")
+    pairs = attention_pairs(s, window) * b * h
+    moved = q.element_size() * (4 * q.numel() + 4 * k.numel())
+    flops = 10 * d * pairs
+    bytes_ms = moved / rate * 1e3
+    ops_ms = flops / (BF16_RATE if dtype == torch.bfloat16 else F32_RATE) * 1e3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = None
+    if window:
+        i = torch.arange(s, device=dev)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    dot = dout.transpose(1, 2)
+
+    def sdpa_fwd():
+        if mask is None:
+            return sdpa(*leaves, is_causal=True, enable_gqa=True)
+        return sdpa(*leaves, attn_mask=mask, enable_gqa=True)
+
+    kept = sdpa_fwd()
+    library_ms = device_ms(lambda: torch.autograd.grad(kept, leaves, dot, retain_graph=True), reps=5)
+    sdpa_both_ms = device_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves, dot), reps=5)
+    del kept
+    fl = [t.detach().requires_grad_() for t in (q, k, v)]
+    flash_both_ms = device_ms(lambda: torch.autograd.grad(flash_attention(*fl, window=window), fl, dout), reps=5)
+    case = {
+        "what": what, "shape": [b, s, h, kvh, d], "dtype": str(dtype).split(".")[-1], "window": window,
+        "max_abs_err": err, "tolerance_ratio": ratio, "fault_ratios": faults,
+        "ms": device_ms(lambda: flash_attention_bwd(q, k, v, out, dout, window=window), reps=5),
+        "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, dout, window=window), reps=2, warmup=1),
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms, "flash_fwd_bwd_ms": flash_both_ms, "sdpa_fwd_bwd_ms": sdpa_both_ms,
+        "flops": flops, "bytes": moved,
+    }
+    case["tflops"] = flops / case["ms"] / 1e9
+    return case
+
+
+def ssd_bwd_case(dev, rate, gen) -> dict:
+    """ssd_scan_bwd against its plain version on the card at mamba2-130m's
+    training shape, with the final state's gradient; a repeat call
+    bit-equal; two planted faults above the limit; its times and bound."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_ref
+
+    b, s, h, p, n = TRAIN_SSD_SHAPE
+    x = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
+    bm, cm = (torch.randn((b, s, n), generator=gen, device=dev) for _ in range(2))
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dh = torch.randn((b, h, p, n), generator=gen, device=dev)
+    args = (x, dt, a, bm, cm, dy, dh)
+    got = ssd_scan_bwd(*args)
+    again = ssd_scan_bwd(*args)
+    require(all(torch.equal(u, w) for u, w in zip(got, again, strict=True)), "ssd_scan_bwd: two calls bit-equal")
+    del again
+    want = ssd_scan_bwd_ref(*args)
+    tol = BWD_TOL[torch.float32]
+    ratio = grad_ratio(got, want) / tol
+    err = max((g - w).abs().max().item() for g, w in zip(got, want, strict=True))
+    require(all(bool(torch.isfinite(g).all()) for g in got), "ssd_scan_bwd: finite gradients")
+    require(ratio <= 1.0, f"ssd_scan_bwd: within {tol} of its plain version ({ratio} of the limit)")
+    faults = {}
+    r16 = [t.to(torch.bfloat16).float() for t in (bm, cm)]
+    faults["B and C rounded to bf16"] = grad_ratio(ssd_scan_bwd_ref(x, dt, a, *r16, dy, dh), want) / tol
+    bad = dy.clone()
+    bad[:, -64:] = 0
+    faults["last chunk's dy dropped"] = grad_ratio(ssd_scan_bwd_ref(x, dt, a, bm, cm, bad, dh), want) / tol
+    del bad, r16, want, got
+    require(min(faults.values()) > 1.0, f"ssd_scan_bwd: the check rejects each planted fault {faults}")
+    q = 64
+    fwd_flops = 2 * b * h * (s // q) * (q * (q + 1) // 2 * (n + p) + 2 * q * p * n)
+    flops = int(2.5 * fwd_flops)
+    moved = 4 * (2 * sum(t.numel() for t in args[:5]) + dy.numel() + dh.numel())
+    bytes_ms, ops_ms = moved / rate * 1e3, flops / F32_RATE * 1e3
+    case = {
+        "shape": [b, s, h, p, n], "chunk": q, "max_abs_err": err, "tolerance_ratio": ratio, "fault_ratios": faults,
+        "ms": device_ms(lambda: ssd_scan_bwd(*args), reps=5),
+        "plain_ms": device_ms(lambda: ssd_scan_bwd_ref(*args), reps=2, warmup=1),
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "flops": flops, "bytes": moved,
+    }
+    case["tflops"] = flops / case["ms"] / 1e9
+    return case
+
+
+def trainer_cell(dev, dispatch) -> dict:
+    """mamba2-130m uncut through Trainer, as ``python -m
+    repro_torch.launch.train --full`` runs it, under deterministic
+    algorithms: the uninterrupted run, then the same run crashed at
+    TRAIN_CELL["crash_at"] and relaunched; the resumed losses and the final
+    params and moments bit-equal to the uninterrupted run's."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_loop import InjectedFailure
+
+    c = TRAIN_CELL
+    cfg = get_config(c["arch"])
+    args = ["--arch", c["arch"], "--full", "--device", dev.type, "--seq-len", str(c["seq"]),
+            "--batch", str(c["batch"]), "--microbatches", str(c["micro"]), "--steps", str(c["steps"]),
+            "--checkpoint-every", str(c["every"]), "--log-every", "1", "--data-vocab", str(c["data_vocab"])]
+    entry = {"cell": dict(c), "layers": cfg.n_layers}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dispatch.reset_launch_counts()
+            t = time.perf_counter()
+            full = train_cli.main(args + ["--checkpoint-dir", f"{tmp}/a"])
+            torch.cuda.synchronize()
+            entry["wall_s"] = time.perf_counter() - t
+            launches = {op: dispatch.launch_counts()[op] for op in TRAIN_OPS}
+            entry["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            try:
+                train_cli.main(args + ["--checkpoint-dir", f"{tmp}/b", "--crash-at", str(c["crash_at"])])
+                require(False, "the crashed run raised InjectedFailure")
+            except InjectedFailure:
+                pass
+            resumed = train_cli.main(args + ["--checkpoint-dir", f"{tmp}/b"])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    hist = full.history
+    per_step = cfg.n_layers * c["micro"]
+    require(launches["ssd_scan_bwd"] == c["steps"] * per_step and launches["ssd_scan"] == 2 * c["steps"] * per_step
+            and launches["flash_attention_bwd"] == launches["flash_attention"] == 0,
+            f"trainer: ssd_scan_bwd once and ssd_scan twice a layer a microbatch ({launches})")
+    require(all(math.isfinite(x) for x in hist["loss"] + full.grad_norms), "trainer: finite losses and grad norms")
+    start = c["every"]
+    require(resumed.history["step"] == hist["step"][start:], f"trainer: resumed at step {start}")
+    require(resumed.history["loss"] == hist["loss"][start:],
+            f"trainer: resumed losses {resumed.history['loss']} equal {hist['loss'][start:]} bit for bit")
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(full.final_state), tree_leaves(resumed.final_state),
+                                                 strict=True))
+    require(same, "trainer: the resumed run's final params and moments equal the uninterrupted run's")
+    tokens = c["batch"] * c["seq"]
+    entry.update(losses=hist["loss"], grad_norms=full.grad_norms, step_walls_s=hist["time"],
+                 resumed_losses=resumed.history["loss"], tokens_per_s=tokens / float(np.median(hist["time"][1:])),
+                 launches=launches, resumed_equal=True, entropy_floor=full.data.entropy_rate)
+    del full, resumed
+    return entry
+
+
+def big_train_cell(dev, dispatch) -> dict:
+    """starcoder2-3b at its published widths through make_train_step: f32
+    master weights and moments, the bf16 compute copy, bf16 gradients,
+    per-layer remat, one microbatch; finite losses and grad norms, the
+    launches a step, the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    c = BIG_TRAIN
+    cfg = get_config(c["arch"])
+    lm = LanguageModel(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    entry = {"cell": dict(c), "parameters": cfg.param_count(), "init_s": time.perf_counter() - t,
+             "remat": cfg.remat, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+             "held_gib": torch.cuda.memory_allocated() / 2**30}
+    step = make_train_step(lm, AdamWConfig(), n_micro=1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    walls, losses, norms, per_step = [], [], [], []
+    for _ in range(c["steps"]):
+        seq = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"] + 1), generator=gen, device=dev)
+        batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        dispatch.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        per_step.append({op: dispatch.launch_counts()[op] for op in TRAIN_OPS})
+    entry["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    require(all(math.isfinite(x) for x in losses + norms), f"starcoder2-3b: finite losses {losses}, norms {norms}")
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    require(all(counts == want for counts in per_step),
+            f"starcoder2-3b: flash_attention_bwd once and flash_attention twice a layer a step {per_step}")
+    entry.update(losses=losses, grad_norms=norms, step_walls_s=walls,
+                 tokens_per_s=c["batch"] * c["seq"] / float(np.median(walls[1:])), launches_per_step=per_step[0],
+                 launches={op: sum(x[op] for x in per_step) for op in TRAIN_OPS})
+    del params, opt
+    return entry
+
+
+def smoke_train_card_against_cpu(dev, dispatch, arch) -> dict:
+    """One make_train_step of ``arch``'s smoke config from the same params
+    and batch on the card and on the CPU: loss, grad norm, first moment and
+    updated params within SMOKE_TRAIN_TOL, and the card's launches."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, tree_leaves, tree_map
+
+    cfg = smoke_config(arch)
+    lm = LanguageModel(cfg)
+    opt_cfg = AdamWConfig()
+    base = lm.init(torch.Generator().manual_seed(SEED), device="cpu")
+    bsz, s = SMOKE_TRAIN
+    rng = np.random.default_rng(SEED + 70)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size, (bsz, s + 1)).astype(np.int32))
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    if cfg.family == "vlm":
+        batch["img"] = torch.as_tensor(rng.standard_normal((bsz, cfg.n_img_tokens, cfg.d_model)).astype(np.float32))
+    out = {}
+    for where in ("cpu", dev.type):
+        params = tree_map(lambda x: x.clone().to(where), base)
+        opt = adamw_init(params)
+        dispatch.reset_launch_counts()
+        params, opt, metrics = make_train_step(lm, opt_cfg, n_micro=1)(
+            params, opt, {k: v.to(where) for k, v in batch.items()})
+        out[where] = (tree_leaves(params), tree_leaves(opt.mu), metrics, dispatch.launch_counts())
+    (p_cpu, mu_cpu, m_cpu, _), (p_dev, mu_dev, m_dev, counts) = out["cpu"], out[dev.type]
+    mu_max = max(x.abs().max().item() for x in mu_cpu)
+    mu_err = max((a.cpu() - b).abs().max().item() for a, b in zip(mu_dev, mu_cpu, strict=True)) / mu_max
+    sure = [b.abs() > SMOKE_TRAIN_TOL["mu_floor"] * mu_max for b in mu_cpu]
+    p_err = max(((a.cpu() - b).abs()[m].max().item() if m.any() else 0.0)
+                for a, b, m in zip(p_dev, p_cpu, sure, strict=True)) / opt_cfg.learning_rate
+    loss_err = abs(float(m_dev["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    norm_err = abs(float(m_dev["grad_norm"]) - float(m_cpu["grad_norm"])) / float(m_cpu["grad_norm"])
+    readings = {"loss": float(m_dev["loss"]), "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+                "mu_err_over_max": mu_err, "param_err_over_lr": p_err,
+                "launches": {op: counts[op] for op in TRAIN_OPS}}
+    t = SMOKE_TRAIN_TOL
+    require(math.isfinite(readings["loss"]) and math.isfinite(float(m_dev["grad_norm"])), f"{arch} smoke: finite")
+    require(loss_err <= t["loss"] and norm_err <= t["grad_norm"] and mu_err <= t["mu"] and p_err <= t["param_over_lr"],
+            f"{arch} smoke train step: card against the CPU {readings}")
+    attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(cfg.family, cfg.n_layers)
+    ssm = cfg.n_layers if cfg.uses_ssm else 0
+    want = {"flash_attention": attn, "flash_attention_bwd": attn, "ssd_scan": ssm, "ssd_scan_bwd": ssm}
+    require(readings["launches"] == want, f"{arch} smoke: launches {readings['launches']}, expected {want}")
+    return readings
+
+
+def train_phase(dev, rate, rows) -> None:
+    """Phase 18 (module docstring): the backward kernels against their plain
+    versions and timed; mamba2-130m through Trainer with a crash and a
+    relaunch; starcoder2-3b through make_train_step; the smoke families
+    card against the CPU.  Adds the flash_attention_bwd and ssd_scan_bwd
+    rows."""
+    from repro_torch.kernels import dispatch
+
+    phase_t0 = time.perf_counter()
+    report = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    flash_cases = [flash_bwd_case(dev, rate, gen, *case) for case in TRAIN_FLASH_CASES]
+    print(f"train: flash_attention_bwd against its plain version {json.dumps(flash_cases)}", flush=True)
+    settle()
+    ssd = ssd_bwd_case(dev, rate, gen)
+    print(f"train: ssd_scan_bwd against its plain version {json.dumps(ssd)}", flush=True)
+    settle()
+    report["trainer"] = trainer_cell(dev, dispatch)
+    print(f"train: {TRAIN_CELL['arch']} through Trainer {json.dumps(report['trainer'])}", flush=True)
+    settle()
+    report["make_train_step"] = big_train_cell(dev, dispatch)
+    print(f"train: {BIG_TRAIN['arch']} through make_train_step {json.dumps(report['make_train_step'])}", flush=True)
+    settle()
+    report["smoke_card_against_cpu"] = {arch: smoke_train_card_against_cpu(dev, dispatch, arch)
+                                        for arch in TRAIN_FAMILIES}
+    print(f"train: smoke families card against the CPU {json.dumps(report['smoke_card_against_cpu'])}", flush=True)
+
+    first = flash_cases[0]
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "none: the gradient of src/repro/kernels/flash_attention/kernel.py:94, which the "
+                    "reference takes through plain attention_chunked",
+        "launches": report["make_train_step"]["launches"]["flash_attention_bwd"],
+        "max_abs_err": first["max_abs_err"], "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+        "train_shapes": flash_cases,
+    })
+    rows.append({
+        "name": "ssd_scan_bwd", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": "none: the gradient of src/repro/kernels/ssd_scan/kernel.py:92, which the reference "
+                    "takes through plain ssd_chunked",
+        "launches": report["trainer"]["launches"]["ssd_scan_bwd"],
+        "max_abs_err": ssd["max_abs_err"], "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"], "library_ms": None,
+        "train_shapes": [ssd],
+    })
+    report["phase_s"] = time.perf_counter() - phase_t0
+    print(json.dumps({"train": report}), flush=True)
+
+
 def settle() -> None:
     """Between phases: collect Python's cyclic garbage, then return the
     cached blocks, so a phase starts with only what is still referenced.
@@ -3565,6 +3984,10 @@ def main() -> int:
 
     # -- 16. the dense-cache families at full width -------------------------
     dense_cache_phase(dev, rate, rows)
+    settle()
+
+    # -- 18. training: the backward kernels, Trainer, make_train_step -------
+    train_phase(dev, rate, rows)
     settle()
 
     # -- 5. where a generation's time goes (a traced LAZY_SR run), last: a

@@ -5,6 +5,8 @@ Every architecture of the reference's registry
 unknown one raises.  ``LanguageModel`` builds them all; the paged
 ``ServeEngine`` serves the dense, audio and moe families, and the others
 decode through ``LanguageModel.prefill``/``decode_step``'s dense caches.
+``ShapeSpec``, ``SHAPES`` and ``shape_cells`` live in
+:mod:`repro_torch.configs.registry` (imported here on first use).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from repro_torch.configs import (
 )
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "get_config", "smoke_config"]
+__all__ = ["ARCHS", "ALIASES", "SHAPES", "get_config", "smoke_config", "shape_cells"]
 
 ARCHS = {
     "zamba2_7b": zamba2_7b,
@@ -66,3 +68,12 @@ def get_config(arch: str) -> ModelConfig:
 def smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU runs and tests."""
     return _module(arch).SMOKE
+
+
+def __getattr__(name: str):
+    # The registry imports this module: its names resolve on first use.
+    if name in ("SHAPES", "ShapeSpec", "shape_cells"):
+        from repro_torch.configs import registry
+
+        return getattr(registry, name)
+    raise AttributeError(name)

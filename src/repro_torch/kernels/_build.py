@@ -43,6 +43,8 @@ SOURCES = (
     "resample.cu",
     "flash_attention.cu",
     "ssd_scan.cu",
+    "flash_attention_bwd.cu",
+    "ssd_scan_bwd.cu",
 )
 HEADERS = ("refcount_hist.cuh", "comb.cuh", "comb_range.cuh", "column_runs.cuh")
 # No --use_fast_math: clone_chain's comb positions need IEEE division

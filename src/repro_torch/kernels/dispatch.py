@@ -1,7 +1,10 @@
 """Kernel registry and the port's device policy.
 
 Mirrors ``repro.kernels.dispatch``: every op of its ``KNOWN_OPS`` has a
-CUDA kernel here.  The JAX package picks a path through
+CUDA kernel here, and so do the gradients of ``flash_attention`` and
+``ssd_scan`` (``*_bwd``), which the reference takes with ``jax.grad``
+through plain code and the port, whose forward runs the kernels, takes
+through kernels of their own.  The JAX package picks a path through
 ``use_kernel``/``interpret`` switches; the port has none.  The device of the tensors decides:
 
 * CUDA tensors go to the hand-written kernel.  Its wrapper launches it
@@ -50,6 +53,8 @@ KNOWN_OPS = {
     "resample": ("repro_torch.kernels.resample", "systematic_comb"),
     "flash_attention": ("repro_torch.kernels.flash_attention", "flash_attention"),
     "ssd_scan": ("repro_torch.kernels.ssd_scan", "ssd_scan"),
+    "flash_attention_bwd": ("repro_torch.kernels.flash_attention", "flash_attention_bwd"),
+    "ssd_scan_bwd": ("repro_torch.kernels.ssd_scan", "ssd_scan_bwd"),
 }
 
 

@@ -35,3 +35,24 @@ def flash_attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # [B, Sq, H, d]
+    k: torch.Tensor,  # [B, Sk, KVH, d]
+    v: torch.Tensor,
+    dout: torch.Tensor,  # [B, Sq, H, d]
+    *,
+    scale: float | None = None,
+    window: int = 0,
+):
+    """The gradient of :func:`flash_attention_ref` in the model layout
+    ``[B, S, heads, d]``: autograd of the plain forward, ``(dq, dk, dv)``
+    in the inputs' dtypes.  The yardstick ``csrc/flash_attention_bwd.cu``
+    is held against on the card; the CPU path differentiates the plain
+    forward itself."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        qt, kt, vt = (t.transpose(1, 2) for t in leaves)
+        out = flash_attention_ref(qt, kt, vt, scale=scale, window=window).transpose(1, 2)
+        return torch.autograd.grad(out, leaves, dout)

@@ -14,6 +14,14 @@ card runs the chunk rounded up to 16 over a tail padded with ``dt = 0``
 by ``exp(0 · a) = 1`` and adds ``0 · x B = 0``, so every output up to S
 and the final state are the unpadded scan's; the padded outputs are
 dropped.
+
+On CUDA tensors the call is differentiable through one
+``torch.autograd.Function`` whose backward launches
+``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd`) over the same padded
+length: the gradient of the final state, where one is given, enters the
+reverse sweep as its starting state, and the gradients of the padded
+tail are dropped.  On CPU tensors autograd differentiates the plain
+version, as the reference's ``jax.grad`` differentiates ``ssd_chunked``.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import check, route
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 _P, _I, _C = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -138,10 +146,17 @@ def ssd_scan(
         raise ValueError(f"sequence {s} is not a multiple of the chunk {q}")
     if route(x, dt, a, bmat, cmat) == "cpu":
         return ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
+    return _SSDScan.apply(x, dt, a, bmat, cmat, chunk)
+
+
+def _forward(x, dt, a, bmat, cmat, chunk: int):
+    """The card path of :func:`ssd_scan` on checked CUDA inputs."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
     if not (b and h and s):
         return (torch.empty((b, s, h, p), dtype=torch.float32, device=x.device),
                 torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
-    s_pad, qc = card_length(s, q)
+    s_pad, qc = card_length(s, min(chunk, s))
     if s_pad == s:
         out = card_call(x, dt, a, bmat, cmat, qc)
     else:
@@ -150,6 +165,22 @@ def ssd_scan(
         out = y[:, :s].contiguous(), hf
     ssd_scan.launches += 1
     return out
+
+
+class _SSDScan(torch.autograd.Function):
+    """The forward kernel, and the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, chunk):
+        out = _forward(x, dt, a, bmat, cmat, chunk)
+        ctx.save_for_backward(x, dt, a, bmat, cmat)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        grads = ssd_scan_bwd(*ctx.saved_tensors, dy, dh, chunk=ctx.chunk)
+        return (*grads, None)
 
 
 ssd_scan.launches = 0
@@ -176,3 +207,91 @@ def card_call(x, dt, a, bmat, cmat, q, *, heads=HEADS_PER_CTA, p_tile=None):
         b, s, h, p, n, q, heads, plan["p_tile"], _DTYPES[x.dtype],
     )
     return y, hout
+
+
+#: The backward kernel's largest chunk (its q x q forms live in shared
+#: memory), and its P tiles: the widest that divides P.
+BWD_MAX_CHUNK = 64
+BWD_P_TILES = (32, 16)
+
+
+def bwd_plan(b, s, h, p, n, q) -> dict:
+    """The backward kernel's launch plan from shapes alone: a CTA per (P
+    tile, head, batch); shared memory ``4q(PT+1) + 2q(N+1) + 2PT(N+1) +
+    3q(q+1) + 7q + 8`` floats (184,608 bytes at mamba2-130m's q 64, PT 32,
+    N 128); scratch for each chunk's starting state (``b h (s/q) p n``
+    floats) and the partial sums of dB, dC (``h (p/PT) b s n`` floats
+    each), ddt (``(p/PT) b s h``) and da that one ``torch.sum`` reduces.
+    Raises ``ValueError`` on what the kernel does not take."""
+    if q > BWD_MAX_CHUNK:
+        raise ValueError(f"ssd_scan's backward on the card takes a chunk up to {BWD_MAX_CHUNK} (got {q})")
+    pt = next((t for t in BWD_P_TILES if p % t == 0), None)
+    if pt is None:
+        raise ValueError(f"ssd_scan's backward on the card takes P as a multiple of 16 (got {p})")
+    smem = 4 * (4 * q * (pt + 1) + 2 * q * (n + 1) + 2 * pt * (n + 1) + 3 * q * (q + 1) + 7 * q + 8)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan's backward at chunk {q}, N {n} needs {smem} bytes of shared "
+                         f"memory a CTA, above the card's {SMEM_LIMIT}")
+    return {"p_tile": pt, "smem": smem, "ctas": b * h * (p // pt),
+            "hin_floats": b * h * (s // q) * p * n, "part_floats": h * (p // pt) * b * s * n}
+
+
+def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh=None, *, chunk: int = 64):
+    """The gradient of :func:`ssd_scan` for ``dy`` [B,S,H,P] (the output's
+    gradient) and ``dh`` [B,H,P,N] (the final state's, or None):
+    ``(dx, ddt, da, dbmat, dcmat)``, dx, dbmat and dcmat in the inputs'
+    dtype, ddt and da f32.  CUDA tensors launch ``csrc/ssd_scan_bwd.cu``
+    (one launch, over the length the forward ran: a chunk that is no
+    multiple of 16 over a ``dt = 0`` tail whose gradients are dropped;
+    bf16 inputs are widened to f32 first); the per-(head, P tile) partial
+    sums of dB, dC, ddt and da are reduced by one ``torch.sum`` each, in
+    a fixed order.  CPU tensors run :func:`ssd_scan_bwd_ref`."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    check(bmat, "bmat", x.dtype, (b, s, n))
+    check(cmat, "cmat", x.dtype, (b, s, n))
+    if dy.shape != x.shape or (dh is not None and dh.shape != (b, h, p, n)):
+        raise ValueError(f"dy {tuple(dy.shape)} / dh must be y's and the final state's shapes")
+    q = min(chunk, s)
+    if q and s % q:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {q}")
+    tensors = (x, dt, a, bmat, cmat, dy) + (() if dh is None else (dh,))
+    if route(*tensors) == "cpu":
+        return ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dh, chunk=chunk)
+    dev = x.device
+    if not (b and h and s):
+        return (torch.zeros_like(x), torch.zeros((b, s, h), device=dev), torch.zeros((h,), device=dev),
+                torch.zeros_like(bmat), torch.zeros_like(cmat))
+    s_pad, qc = card_length(s, q)
+    card_plan(b, s_pad, h, p, n, qc, torch.float32)  # the forward's limits
+    plan = bwd_plan(b, s_pad, h, p, n, qc)
+    xf, dtf, bf, cf = (t.float().contiguous() for t in (x, dt, bmat, cmat))
+    dyf = dy.float().contiguous()
+    if s_pad != s:
+        xf, dtf, bf, cf = pad_tail(xf, dtf, bf, cf, s_pad)
+        dyf = torch.cat([dyf, dyf.new_zeros((b, s_pad - s, h, p))], dim=1)
+    af = a.float().contiguous()
+    dhf = None if dh is None else dh.float().contiguous()
+    pt = plan["p_tile"]
+    npt = p // pt
+    dx = torch.empty_like(xf)
+    ddt = torch.empty((npt, b, s_pad, h), dtype=torch.float32, device=dev)
+    da = torch.empty((npt, b, h), dtype=torch.float32, device=dev)
+    db = torch.empty((h * npt, b, s_pad, n), dtype=torch.float32, device=dev)
+    dc = torch.empty_like(db)
+    hin = torch.empty(plan["hin_floats"], dtype=torch.float32, device=dev)
+    _build.launch(
+        "ssd_scan_bwd",
+        (_P,) * 13 + (_I,) * 7,
+        dev,
+        *(_build.ptr(t) for t in (xf, dtf, af, bf, cf, dyf)),
+        ctypes.c_void_p(None if dhf is None else dhf.data_ptr()),
+        *(_build.ptr(t) for t in (dx, ddt, da, db, dc, hin)),
+        b, s_pad, h, p, n, qc, pt,
+    )
+    ssd_scan_bwd.launches += 1
+    return (dx[:, :s].to(x.dtype), ddt.sum(0)[:, :s], da.sum((0, 1)),
+            db.sum(0)[:, :s].to(bmat.dtype), dc.sum(0)[:, :s].to(cmat.dtype))
+
+
+ssd_scan_bwd.launches = 0

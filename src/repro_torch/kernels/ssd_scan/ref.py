@@ -74,3 +74,20 @@ def ssd_chunked(
 def ssd_scan_ref(x, dt, a, bmat, cmat, *, chunk: int = 64):
     """x [B,S,H,P], dt [B,S,H], a [H], bmat/cmat [B,S,N] (G=1)."""
     return ssd_chunked(x, dt, a, bmat[:, :, None, :], cmat[:, :, None, :], chunk=chunk)
+
+
+def ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dh=None, *, chunk: int = 64):
+    """The gradient of :func:`ssd_scan_ref` for the output gradient ``dy``
+    [B,S,H,P] and, where given, the final state's ``dh`` [B,H,P,N]:
+    autograd of the plain forward, ``(dx, ddt, da, dbmat, dcmat)`` in the
+    inputs' dtypes.  The yardstick ``csrc/ssd_scan_bwd.cu`` is held
+    against on the card; the CPU path differentiates the plain forward
+    itself."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, dt, a, bmat, cmat)]
+        y, h_last = ssd_scan_ref(*leaves, chunk=chunk)
+        outs, grads = [y], [dy]
+        if dh is not None:
+            outs.append(h_last)
+            grads.append(dh)
+        return torch.autograd.grad(outs, leaves, grads)

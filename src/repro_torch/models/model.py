@@ -225,8 +225,13 @@ class LanguageModel:
         img_feats: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross entropy over the labels >= 0, and the
-        accuracy of the argmax there (a value only: nothing here takes a
-        gradient)."""
+        accuracy of the argmax there.  Differentiable: ``loss.backward()``
+        takes the gradient of every parameter the forward reads, through
+        the ``flash_attention`` and ``ssd_scan`` backward kernels on the
+        card, as the reference's ``jax.value_and_grad(lm.loss)`` does
+        through its plain attention and scan.  With ``cfg.remat`` each
+        layer's activations are recomputed in the backward
+        (:meth:`_run_blocks`)."""
         logits = self.forward(params, tokens, img_feats)
         mask = labels >= 0
         safe = labels.clamp(min=0).long()
@@ -265,12 +270,25 @@ class LanguageModel:
     ) -> torch.Tensor:
         """The layer stack over the embedded tokens; with ``fill``, each
         layer's K (rotated) and V, ring slots and SSM state are written
-        into that cache in place."""
+        into that cache in place.  With ``cfg.remat``, while autograd
+        records and no cache is filled, each layer runs under one
+        ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``,
+        as the reference wraps its scanned layer body in
+        ``jax.checkpoint``: its activations are dropped after the forward
+        and recomputed in the backward (the forward kernels launch twice
+        a layer)."""
         cfg = self.cfg
         fam = cfg.family
         eps = cfg.norm_eps
         b, s = tokens.shape
         x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+        remat = cfg.remat and fill is None and torch.is_grad_enabled()
+
+        def layer(fn, h):
+            """One layer ``fn(h) -> h``, under a checkpoint when ``remat``."""
+            if remat:
+                return torch.utils.checkpoint.checkpoint(fn, h, use_reentrant=False)
+            return fn(h)
 
         def attend(p, h, k_c=None, v_c=None, window=0, norm="ln1"):
             out, k, v = attn_lib.attention_train(
@@ -295,31 +313,42 @@ class LanguageModel:
         def slot(leaf, *idx):
             return None if fill is None else getattr(fill, leaf)[idx]
 
+        def shared_block(sp, h, inv):
+            h, _, _ = attend(sp, h, slot("shared_k", inv), slot("shared_v", inv), norm="pre")
+            return h + mlp(sp["mlp"], rms_norm(h, sp["mid"]["scale"], eps), cfg.act)
+
+        def local_block(p, h, u, i):
+            h, k, v = dense_block(p, h, window=cfg.window)
+            if fill is not None:
+                fill.k_loc[u, i] = _to_ring(k, s, cfg.window)
+                fill.v_loc[u, i] = _to_ring(v, s, cfg.window)
+            return h
+
+        def cross_block(p, h):
+            return h + attn_lib.cross_attention(
+                p["cross"], rms_norm(h, p["ln_cross"]["scale"], eps), img_feats.to(h.dtype), cfg
+            )
+
         blocks = params["blocks"]
         if fam in ("dense", "audio", "moe"):
             for i, p in enumerate(iter_layers(params, cfg)):
-                x, _, _ = dense_block(p, x, slot("k", i), slot("v", i))
+                x = layer(lambda h, p=p, i=i: dense_block(p, h, slot("k", i), slot("v", i))[0], x)
         elif fam == "ssm":
             for i in range(cfg.n_layers):
-                x = ssm_block(layer_params(blocks, i), x, i)
+                x = layer(lambda h, i=i: ssm_block(layer_params(blocks, i), h, i), x)
         elif fam == "hybrid":
             sp = params["shared_attn"]
             every = cfg.attn_every
             for i in range(cfg.n_layers):
-                x = ssm_block(layer_params(blocks, i), x, i)
+                x = layer(lambda h, i=i: ssm_block(layer_params(blocks, i), h, i), x)
                 if i % every == every - 1:
-                    inv = i // every
-                    x, _, _ = attend(sp, x, slot("shared_k", inv), slot("shared_v", inv), norm="pre")
-                    x = x + mlp(sp["mlp"], rms_norm(x, sp["mid"]["scale"], eps), cfg.act)
+                    x = layer(lambda h, inv=i // every: shared_block(sp, h, inv), x)
         elif fam == "local_global":
             for u in range(self._n_scan):
                 pu = layer_params(blocks, u)
                 for i in range(cfg.local_ratio):
-                    x, k, v = dense_block(pu[f"local{i}"], x, window=cfg.window)
-                    if fill is not None:
-                        fill.k_loc[u, i] = _to_ring(k, s, cfg.window)
-                        fill.v_loc[u, i] = _to_ring(v, s, cfg.window)
-                x, _, _ = dense_block(pu["global"], x, slot("k", u), slot("v", u))
+                    x = layer(lambda h, p=pu[f"local{i}"], u=u, i=i: local_block(p, h, u, i), x)
+                x = layer(lambda h, p=pu["global"], u=u: dense_block(p, h, slot("k", u), slot("v", u))[0], x)
         elif fam == "vlm":
             if img_feats is None:
                 raise ValueError("the vlm family needs img_feats [B, n_img, D]")
@@ -327,10 +356,8 @@ class LanguageModel:
             for u in range(self._n_scan):
                 pu = layer_params(blocks, u)
                 for i, name in enumerate([f"self{j}" for j in range(n - 1)] + ["anchor"]):
-                    x, _, _ = dense_block(pu[name], x, slot("k", u * n + i), slot("v", u * n + i))
-                x = x + attn_lib.cross_attention(
-                    pu["cross"], rms_norm(x, pu["ln_cross"]["scale"], eps), img_feats.to(x.dtype), cfg
-                )
+                    x = layer(lambda h, p=pu[name], j=u * n + i: dense_block(p, h, slot("k", j), slot("v", j))[0], x)
+                x = layer(lambda h, p=pu: cross_block(p, h), x)
         else:
             raise ValueError(fam)
         return x

@@ -26,8 +26,8 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.clone_chain import clone_chain_kernel, weights_cdf  # noqa: E402
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
 from repro_torch.kernels.cow_write import cow_write, cow_write_delta  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import WGMMA_HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, WGMMA_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.refcount_update import refcount_delta  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
@@ -42,7 +42,7 @@ from repro_torch.kernels.resample import (  # noqa: E402
     resample_systematic_kernel,
     systematic_comb,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.serving import crosscheck as cc  # noqa: E402
 from repro_torch.serving.crosscheck import LOGIT_TOL, card_against_cpu, smoke_program  # noqa: E402
 from repro_torch.kernels.cow_write import cow_write_ref  # noqa: E402
@@ -77,6 +77,8 @@ def test_scan_covers_the_package():
     assert {"pool.py", "store.py", "filters.py", "ops.py", "chip_smoke.py"} <= names
     assert {"faults.py", "smc_decode.py", "scheduler.py", "torch_smc_decode.py"} <= names
     assert {"pgibbs.py", "pcfg.py", "crbd.py", "torch_particle_gibbs.py"} <= names
+    assert {"optimizer.py", "checkpoint.py", "train_loop.py", "pipeline.py", "steps.py", "train.py",
+            "registry.py", "torch_train_lm.py"} <= names
 
 
 def lgssm() -> SSMDef:
@@ -99,6 +101,19 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ParticleFilter(lgssm(), FilterConfig(n_particles=4, n_steps=4))
     assert tstore.create(cfg, device="cpu").tables.device.type == "cpu"
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainConfig, Trainer
+
+    data = DataConfig(vocab_size=16, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(smoke_config("mamba2_130m"), data, AdamWConfig(), TrainConfig(checkpoint_dir="unused"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TokenPipeline(data)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--steps", "1"])
 
 
 def test_unported_options_raise():
@@ -224,10 +239,12 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
         delta_store_program(cuda_device, mode)
     gen = rnd.generator(2, cuda_device)
     resample_systematic_kernel(gen, rnd.normal(gen, (4096,)))
-    q = torch.randn((1, 130, 4, 64), generator=gen, device=cuda_device)
-    kv = torch.randn((1, 130, 2, 64), generator=gen, device=cuda_device)
-    flash_attention(q, kv, kv, window=32)
-    ssd_scan(*ssd_inputs(gen, 1, 128, 2, 16, 32, torch.float32, cuda_device))
+    q = torch.randn((1, 130, 4, 64), generator=gen, device=cuda_device, requires_grad=True)
+    kv = torch.randn((1, 130, 2, 64), generator=gen, device=cuda_device, requires_grad=True)
+    flash_attention(q, kv, kv, window=32).sum().backward()
+    x, *rest = ssd_inputs(gen, 1, 128, 2, 16, 32, torch.float32, cuda_device)
+    y, h_last = ssd_scan(x.requires_grad_(), *rest)
+    (y.sum() + h_last.sum()).backward()
     torch.cuda.synchronize()
     assert all(count > 0 for count in dispatch.launch_counts().values())
 
@@ -673,6 +690,144 @@ def paged_case(seed, dtype, rows=40, layers=3, bs=16, kvh=2, d=128, h=24, b=7, n
 
 
 @pytest.mark.cuda
+def grads_within(got, want, frac):
+    """Each gradient within ``frac`` of its plain version's largest
+    magnitude, or of a hundredth of the call's largest gradient where
+    that is more: a gradient that is 0 in exact arithmetic (dQ at S = 1)
+    reads the rounding of the forward's output, from which the kernel
+    forms rowsum(dO o O); returns the worst ratio."""
+    want = [w.float().cpu() for w in want]
+    largest = max(w.abs().max().item() for w in want if w.numel())
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        g = g.float().cpu()
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        if not w.numel():
+            continue
+        scale = max(w.abs().max().item(), 1e-2 * largest)
+        worst = max(worst, (g - w).abs().max().item() / scale)
+    assert worst <= frac, worst
+    return worst
+
+
+def flash_bwd_case(gen, shape, dtype, window):
+    b, s, h, kvh, d = shape
+    dev = gen.device
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype)
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    return q, k, v, flash_attention(q, k, v, window=window), dout
+
+
+#: The backward kernels against their plain versions (autograd of the
+#: plain forward on the CPU): f32 within 1e-4 of each gradient's largest
+#: magnitude (sums of up to S terms in another order), bf16 within 2e-2
+#: (the inputs and outputs rounded to bf16, as the forward's check).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+class TestBackwardKernelsOnCard:
+    """``flash_attention_bwd`` and ``ssd_scan_bwd`` against their plain
+    versions, bit-equal repeats, and autograd through the forward kernels
+    launching them once a call."""
+
+    @pytest.mark.parametrize("d", HEAD_DIMS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("window", [0, 45])
+    def test_flash_attention_bwd(self, cuda_device, d, dtype, window):
+        q, k, v, out, dout = flash_bwd_case(rnd.generator(d + window, cuda_device), (2, 200, 6, 2, d),
+                                            dtype, window)
+        got = flash_attention_bwd(q, k, v, out, dout, window=window)
+        want = flash_attention_bwd(*(t.cpu() for t in (q, k, v, out, dout)), window=window)
+        grads_within(got, want, BWD_TOL[dtype])
+
+    @pytest.mark.parametrize("d", [32, 128, 256])
+    @pytest.mark.parametrize("window", [0, 45, 1000])
+    @pytest.mark.parametrize("b,s,h,kvh", [(1, 1, 4, 4), (3, 63, 3, 1), (1, 300, 8, 1), (2, 130, 16, 2)])
+    def test_flash_attention_bwd_tiling(self, cuda_device, d, window, b, s, h, kvh):
+        """Partial tiles (S of 1, 63, 130, 300), a window inside one tile
+        and one longer than S, G of 1, 3 and 8; f32."""
+        q, k, v, out, dout = flash_bwd_case(rnd.generator(d + s + window, cuda_device), (b, s, h, kvh, d),
+                                            torch.float32, window)
+        got = flash_attention_bwd(q, k, v, out, dout, window=window)
+        want = flash_attention_bwd(*(t.cpu() for t in (q, k, v, out, dout)), window=window)
+        grads_within(got, want, BWD_TOL[torch.float32])
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_flash_attention_bwd_repeat_bit_equal(self, cuda_device, dtype):
+        args = flash_bwd_case(rnd.generator(5, cuda_device), (2, 384, 8, 2, 128), dtype, 0)
+        first = flash_attention_bwd(*args)
+        second = flash_attention_bwd(*args)
+        assert all(torch.equal(x, y) for x, y in zip(first, second, strict=True))
+
+    def test_flash_attention_autograd(self, cuda_device):
+        """``loss.backward()`` through the forward kernel runs the backward
+        kernel once, with the gradients of a direct call."""
+        q, k, v, _, dout = flash_bwd_case(rnd.generator(6, cuda_device), (2, 130, 4, 2, 64),
+                                          torch.bfloat16, 0)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        dispatch.reset_launch_counts()
+        out = flash_attention(*leaves)
+        (out.float() * dout.float()).sum().backward()
+        counts = dispatch.launch_counts()
+        assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+        want = flash_attention_bwd(q, k, v, out.detach(), dout)
+        assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want, strict=True))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("with_dh", [False, True])
+    def test_ssd_scan_bwd(self, cuda_device, dtype, with_dh):
+        """mamba2-130m's head widths (P 64, N 128, chunk 64), 3 heads."""
+        gen = rnd.generator(7, cuda_device)
+        args = ssd_inputs(gen, 2, 256, 3, 64, 128, dtype, cuda_device)
+        dy = torch.randn((2, 256, 3, 64), generator=gen, device=cuda_device)
+        dh = torch.randn((2, 3, 64, 128), generator=gen, device=cuda_device) if with_dh else None
+        got = ssd_scan_bwd(*args, dy, dh)
+        want = ssd_scan_bwd(*(t.cpu() for t in args), dy.cpu(), None if dh is None else dh.cpu())
+        grads_within(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+    @pytest.mark.parametrize("s,q,p,n", [(64, 64, 32, 48), (320, 64, 32, 48), (16, 16, 16, 16),
+                                         (144, 16, 48, 32), (40, 64, 32, 16), (20, 64, 64, 128)])
+    def test_ssd_scan_bwd_chunks(self, cuda_device, s, q, p, n):
+        """One chunk and many, chunk 16 and 64, P tiles of 16 and 32, and
+        lengths whose chunk runs over a dt = 0 tail (40, 20); f32, with
+        the final state's gradient."""
+        gen = rnd.generator(s + q + p, cuda_device)
+        args = ssd_inputs(gen, 2, s, 5, p, n, torch.float32, cuda_device)
+        dy = torch.randn((2, s, 5, p), generator=gen, device=cuda_device)
+        dh = torch.randn((2, 5, p, n), generator=gen, device=cuda_device)
+        got = ssd_scan_bwd(*args, dy, dh, chunk=q)
+        want = ssd_scan_bwd(*(t.cpu() for t in args), dy.cpu(), dh.cpu(), chunk=q)
+        grads_within(got, want, 1e-4)
+
+    def test_ssd_scan_bwd_repeat_bit_equal(self, cuda_device):
+        gen = rnd.generator(8, cuda_device)
+        args = ssd_inputs(gen, 2, 512, 4, 64, 128, torch.float32, cuda_device)
+        dy = torch.randn((2, 512, 4, 64), generator=gen, device=cuda_device)
+        first = ssd_scan_bwd(*args, dy)
+        second = ssd_scan_bwd(*args, dy)
+        assert all(torch.equal(x, y) for x, y in zip(first, second, strict=True))
+
+    def test_ssd_scan_autograd(self, cuda_device):
+        """``backward()`` through the forward kernel runs the backward
+        kernel once; dt and a receive their gradients through the f32
+        casts ``ssd_scan`` makes."""
+        gen = rnd.generator(9, cuda_device)
+        x, dt, a, bm, cm = (t.clone().requires_grad_() for t in
+                            ssd_inputs(gen, 1, 128, 2, 32, 32, torch.float32, cuda_device))
+        dispatch.reset_launch_counts()
+        y, h_last = ssd_scan(x, dt, a, bm, cm)
+        (y.square().sum() + h_last.sum()).backward()
+        counts = dispatch.launch_counts()
+        assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
+        leaves = [t.detach().cpu().requires_grad_() for t in (x, dt, a, bm, cm)]
+        yr, hr = ssd_scan(*leaves)
+        (yr.square().sum() + hr.sum()).backward()
+        grads_within([t.grad for t in (x, dt, a, bm, cm)], [t.grad for t in leaves], 1e-4)
+
+
 class TestPagedAttentionOnCard:
     """The paged-attention kernel against its plain version on the card, on
     strided views of a starcoder2-3b-width pool (hd 128, G = 12); bf16 to

@@ -49,7 +49,7 @@ from repro_torch.kernels.clone_chain import (  # noqa: E402
 )
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
 from repro_torch.kernels.cow_write import cow_write, cow_write_delta  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels.refcount_update import (  # noqa: E402
     refcount_delta,
@@ -61,8 +61,8 @@ from repro_torch.kernels.resample import (  # noqa: E402
     resample_systematic_kernel,
     systematic_comb,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
-from repro_torch.kernels.ssd_scan.ops import card_plan  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import bwd_plan, card_plan  # noqa: E402
 
 pytest.importorskip("hypothesis", reason="property tests need hypothesis (dev extra)")
 from hypothesis import given, settings, strategies as st  # noqa: E402
@@ -621,6 +621,27 @@ class TestFlashAttention:
         got = flash_attention(t(q), t(k), t(v), window=window)
         np.testing.assert_allclose(got.numpy(), np.asarray(want.swapaxes(1, 2)), rtol=2e-5, atol=2e-5)
 
+    @pytest.mark.parametrize("window", [0, 17])
+    def test_gradient_matches_reference(self, window):
+        """``flash_attention_bwd``'s plain version (autograd of the plain
+        forward) against ``jax.vjp`` of the reference's oracle, f32, 2e-5
+        of each gradient's largest magnitude; ``backward()`` through
+        ``flash_attention`` on CPU tensors gives the same gradients."""
+        q, k, v = attention_case(2, 2, 80, 6, 3, 16, "float32")
+        dout = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
+        swap = lambda x: x.swapaxes(1, 2)  # noqa: E731
+        _, vjp = jax.vjp(lambda *a: swap(jax_flash_ref(*map(swap, a), window=window)),
+                         *[jnp.asarray(x) for x in (q, k, v)])
+        want = vjp(jnp.asarray(dout))
+        got = flash_attention_bwd(t(q), t(k), t(v), t(q), t(dout), window=window)
+        leaves = [t(x).requires_grad_() for x in (q, k, v)]
+        (flash_attention(*leaves, window=window) * t(dout)).sum().backward()
+        for g, a, w in zip(got, leaves, want, strict=True):
+            w = np.asarray(w)
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=2e-5 * np.abs(w).max())
+            np.testing.assert_allclose(a.grad.numpy(), g.numpy(), rtol=1e-6, atol=1e-7)
+        assert dispatch.launch_counts()["flash_attention_bwd"] == 0
+
     def test_rejects_bad_inputs(self):
         q, k, v = attention_case(0, 1, 16, 4, 2, 8, "float32")
         with pytest.raises(TypeError):
@@ -668,6 +689,38 @@ class TestSSDScan:
         )
         np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=5e-2, atol=5e-2)
         np.testing.assert_allclose(hf.numpy(), np.asarray(hr), rtol=5e-2, atol=5e-2)
+
+    @pytest.mark.parametrize("s,q,with_dh", [(64, 16, True), (64, 64, False), (96, 32, True)])
+    def test_gradient_matches_reference(self, s, q, with_dh):
+        """``ssd_scan_bwd``'s plain version against ``jax.vjp`` of the
+        reference's oracle for the output's gradient and, where given, the
+        final state's: every input's gradient within 2e-5 of its largest
+        magnitude (f32 sums in other orders)."""
+        args = ssd_case(s + q, 2, s, 3, 8, 16)
+        rng = np.random.default_rng(s)
+        dy = rng.standard_normal((2, s, 3, 8)).astype(np.float32)
+        dh = rng.standard_normal((2, 3, 8, 16)).astype(np.float32)
+        _, vjp = jax.vjp(lambda *a: jax_ssd_scan_ref(*a, chunk=q), *[jnp.asarray(x) for x in args])
+        want = vjp((jnp.asarray(dy), jnp.asarray(dh if with_dh else np.zeros_like(dh))))
+        got = ssd_scan_bwd(*[t(x) for x in args], t(dy), t(dh) if with_dh else None, chunk=q)
+        for g, w in zip(got, want, strict=True):
+            w = np.asarray(w)
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=2e-5 * np.abs(w).max())
+
+    def test_bwd_plan_at_mamba2_widths(self):
+        """The backward kernel's plan at mamba2-130m's training shape
+        (B = 2, S = 4,096, H 24, P 64, N 128, chunk 64): a CTA per (P tile of
+        32, head, batch), 184,608 bytes of shared memory, scratch for the
+        chunk states and the per-(head, P tile) partials; a chunk above 64,
+        P no multiple of 16 or tiles beyond a CTA's shared memory raise."""
+        plan = bwd_plan(2, 4096, 24, 64, 128, 64)
+        assert (plan["p_tile"], plan["ctas"], plan["smem"]) == (32, 96, 184_608)
+        assert plan["hin_floats"] == 2 * 24 * 64 * 64 * 128 and plan["part_floats"] == 24 * 2 * 2 * 4096 * 128
+        assert bwd_plan(1, 64, 2, 48, 32, 16)["p_tile"] == 16
+        for shape in ((1, 128, 2, 64, 128, 128), (1, 64, 2, 24, 32, 64), (1, 64, 2, 32, 512, 64)):
+            with pytest.raises(ValueError):
+                bwd_plan(*shape)
 
     def test_card_plan_at_mamba2_widths(self):
         """The card's launch plan at mamba2-130m's widths (B = 4, S = 2,048,
