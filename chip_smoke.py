@@ -164,7 +164,7 @@ Phases (any failed check raises, and the script exits non-zero):
     paper's N and T, each in EAGER, LAZY and LAZY_SR from one generator
     seed on data from its own ``gen_data``, with the counters set to 0
     before each program and read after it: RBPF (N = 2,048, T = 500),
-    PCFG (N = 16,384, T = 2,000 of the paper's 3,262, the auxiliary filter with its lookahead
+    PCFG (N = 16,384, T = 1,000 of the paper's 3,262, the auxiliary filter with its lookahead
     and its stack in a second store), VBD (N = 4,096, T = 182, particle
     Gibbs, 3 iterations), MOT (N = 4,096, T = 100), CRBD (N = 5,000,
     T = 173, the alive filter with ``max_retries=6``).  Checks:
@@ -289,18 +289,28 @@ Phases (any failed check raises, and the script exits non-zero):
 18. Training (run after phase 16), with the counters set to 0 just
     before each path and read just after.  (a) Each backward kernel
     against its plain version (autograd of the plain forward) on the
-    card: ``flash_attention_bwd`` in bf16 at starcoder2-3b's training
-    shape (2 x 4,096, 24 heads over 2, d 128), at gemma3-12b's local
-    layer (1 x 4,096, 16 over 8, d 256, window 1,024) and in f32 at d 16
-    and 32 (2 x 512, 8 over 2); ``ssd_scan_bwd`` in f32 at mamba2-130m's
-    heads (2 x 4,096, 24 heads, P 64, N 128, chunk 64, with the final
-    state's gradient).  Each gradient within ``BWD_TOL`` (f32 1e-4, bf16
-    2e-2) of its plain version's largest magnitude, two planted faults per
-    case (flash: the last query tile's dO dropped, the first key tile's K
-    zeroed; SSD: B and C rounded to bf16, the last chunk's dy dropped)
-    reading above that limit, two calls bit-equal.  (b) Their times, the
-    plain versions', the bound (bytes over the memory rate or 2.5 times
-    the forward's flops over the type's peak) and, for flash, SDPA's
+    card: ``flash_attention_bwd`` in bf16 on the tensor cores (wgmma) at
+    starcoder2-3b's training shape (2 x 4,096, 24 heads over 2, d 128),
+    at gemma3-12b's local layer (1 x 4,096, 16 over 8, d 256, window
+    1,024) and at zamba2-7b's prefill shape (4 x 960, 32 over 32, d 112,
+    whose last 16 columns TMA fills with zeros), and in f32 on the CUDA
+    cores at d 16 and 32 (2 x 512, 8 over 2); ``ssd_scan_bwd``
+    (chunk-parallel, mma.sync TF32) in f32 at mamba2-130m's heads (2 x
+    4,096, 24 heads, P 64, N 128, chunk 64, with the final state's
+    gradient).  Each case prints its route.  Each gradient within
+    ``BWD_TOL`` (f32 1e-4, bf16 2e-2) of its plain version's largest
+    magnitude, two planted faults per case (flash: the last query tile's
+    dO dropped, the first key tile's K zeroed; SSD: B and C rounded to
+    bf16, the last chunk's dy dropped) reading above that limit, two
+    calls bit-equal; for flash, the gradients of autograd through
+    ``flash_attention`` (whose ``Function`` keeps the forward's row
+    log-sum-exp) bit-equal to a direct call's (given it by
+    ``forward_lse``).  (b) Their times (the tensor-core flash given the
+    forward's log-sum-exp, as training calls it), the plain versions',
+    the bound at the kernel's route (bytes over the memory rate or 2.5
+    times the forward's flops over the peak of the route's type: bf16
+    or f32 for flash, TF32 for SSD; SSD's also at the f32 CUDA-core
+    rate, ``bound_f32_ms``, as the first version's row had it) and, for flash, SDPA's
     backward and both forward-plus-backward pairs.  (c) mamba2-130m uncut
     through ``python -m repro_torch.launch.train --full``'s ``main``
     (sequence 4,096, global batch 8 in 4 microbatches of 2, f32 master
@@ -320,7 +330,7 @@ Phases (any failed check raises, and the script exits non-zero):
     launches by kernel) and adds the ``flash_attention_bwd`` and
     ``ssd_scan_bwd`` rows.
 
-Phase 14 runs PCFG at T = 2,000 (``PROGRAM_T``; the paper's 3,262 is
+Phase 14 runs PCFG at T = 1,000 (``PROGRAM_T``; the paper's 3,262 is
 its ``PAPER_T``), so the script keeps within its time budget.
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
@@ -1836,9 +1846,10 @@ def registry_phase(dev, rate, logw):
 # must launch.
 PROGRAMS_SMALL = (64, 16)
 # T where a program runs shorter than the paper's PAPER_T: PCFG's lazy
-# runs took ~500 s of the script at the paper's 3,262, and phase 16's
-# models need the time.
-PROGRAM_T = {"pcfg": 2000}
+# runs took ~500 s of the script at the paper's 3,262 and 310-480 s at
+# 2,000, where a run on a slow host reached 1,267 s of the script's
+# 1,200-s limit; its host-bound bookkeeping grows with T.
+PROGRAM_T = {"pcfg": 1000}
 # Stacks in the masked write_at check at depth MAX_DEPTH - 1.
 STACK_CHECK_ROWS = 1024
 PROGRAM_OPS = {
@@ -3282,6 +3293,9 @@ def sharded_phase(dev, rate, rows, ys, lm, weights) -> None:
 TRAIN_FLASH_CASES = (  # (what, [B, S, H, KVH, d], dtype, window)
     ("starcoder2-3b", (2, 4096, 24, 2, 128), torch.bfloat16, 0),
     ("gemma3-12b local layer", (1, 4096, 16, 8, 256), torch.bfloat16, 1024),
+    # zamba2-7b's prefill shape: d 112, the width whose last 16 columns TMA
+    # fills with zeros.
+    ("zamba2-7b prefill", (4, 960, 32, 32, 112), torch.bfloat16, 0),
     ("f32 d 16", (2, 512, 8, 2, 16), torch.float32, 0),
     ("f32 d 32", (2, 512, 8, 2, 32), torch.float32, 0),
 )
@@ -3336,16 +3350,25 @@ def flash_bwd_case(dev, rate, gen, what, shape, dtype, window) -> dict:
     the limit; its time, the plain version's, SDPA's backward and the bound;
     flash's forward plus backward against SDPA's."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd, flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ops import forward_lse, tensor_core_route
 
     b, s, h, kvh, d = shape
     q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype) for _ in range(2))
     dout = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
-    out = flash_attention(q, k, v, window=window)
-    got = flash_attention_bwd(q, k, v, out, dout, window=window)
-    again = flash_attention_bwd(q, k, v, out, dout, window=window)
+    # The tensor-core backward reads the forward's row log-sum-exp: a direct
+    # call is given it by forward_lse, autograd by the Function, which keeps
+    # it.  Two direct calls bit-equal, and autograd's gradients equal to theirs.
+    tc = dev.type == "cuda" and tensor_core_route(dtype, d)
+    out, lse = forward_lse(q, k, v, window=window) if tc else (flash_attention(q, k, v, window=window), None)
+    got = flash_attention_bwd(q, k, v, out, dout, window=window, lse=lse)
+    again = flash_attention_bwd(q, k, v, out, dout, window=window, lse=lse)
     require(all(torch.equal(x, y) for x, y in zip(got, again, strict=True)), f"{what}: two calls bit-equal")
-    del again
+    fl = [t.detach().requires_grad_() for t in (q, k, v)]
+    again = torch.autograd.grad(flash_attention(*fl, window=window), fl, dout)
+    require(all(torch.equal(x, y) for x, y in zip(got, again, strict=True)),
+            f"{what}: autograd through flash_attention bit-equal to a direct call")
+    del again, fl
     want = flash_attention_bwd_ref(q, k, v, dout, window=window)
     tol = BWD_TOL[dtype]
     ratio = grad_ratio(got, want) / tol
@@ -3387,8 +3410,9 @@ def flash_bwd_case(dev, rate, gen, what, shape, dtype, window) -> dict:
     flash_both_ms = device_ms(lambda: torch.autograd.grad(flash_attention(*fl, window=window), fl, dout), reps=5)
     case = {
         "what": what, "shape": [b, s, h, kvh, d], "dtype": str(dtype).split(".")[-1], "window": window,
+        "route": "tensor cores, wgmma (bf16 P and dS)" if tc else "CUDA cores, f32",
         "max_abs_err": err, "tolerance_ratio": ratio, "fault_ratios": faults,
-        "ms": device_ms(lambda: flash_attention_bwd(q, k, v, out, dout, window=window), reps=5),
+        "ms": device_ms(lambda: flash_attention_bwd(q, k, v, out, dout, window=window, lse=lse), reps=5),
         "plain_ms": device_ms(lambda: flash_attention_bwd_ref(q, k, v, dout, window=window), reps=2, warmup=1),
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms, "flash_fwd_bwd_ms": flash_both_ms, "sdpa_fwd_bwd_ms": sdpa_both_ms,
@@ -3434,12 +3458,17 @@ def ssd_bwd_case(dev, rate, gen) -> dict:
     fwd_flops = 2 * b * h * (s // q) * (q * (q + 1) // 2 * (n + p) + 2 * q * p * n)
     flops = int(2.5 * fwd_flops)
     moved = 4 * (2 * sum(t.numel() for t in args[:5]) + dy.numel() + dh.numel())
-    bytes_ms, ops_ms = moved / rate * 1e3, flops / F32_RATE * 1e3
+    bytes_ms, ops_ms, f32_ms = moved / rate * 1e3, flops / TF32_RATE * 1e3, flops / F32_RATE * 1e3
     case = {
-        "shape": [b, s, h, p, n], "chunk": q, "max_abs_err": err, "tolerance_ratio": ratio, "fault_ratios": faults,
+        "shape": [b, s, h, p, n], "chunk": q, "route": "tensor cores, mma.sync TF32 (hi + lo, three passes)",
+        "max_abs_err": err, "tolerance_ratio": ratio, "fault_ratios": faults,
         "ms": device_ms(lambda: ssd_scan_bwd(*args), reps=5),
         "plain_ms": device_ms(lambda: ssd_scan_bwd_ref(*args), reps=2, warmup=1),
+        # The bound at the kernel's route, TF32 on the tensor cores, as
+        # ssd_scan's row; and at the f32 CUDA-core rate, as the CUDA-core
+        # version's row had it.
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_f32_ms": max(bytes_ms, f32_ms), "bound_f32_by": "bytes" if bytes_ms >= f32_ms else "operations",
         "library_ms": None, "flops": flops, "bytes": moved,
     }
     case["tflops"] = flops / case["ms"] / 1e9
@@ -3617,9 +3646,13 @@ def train_phase(dev, rate, rows) -> None:
     report = {}
     gen = torch.Generator(device=dev).manual_seed(SEED + 80)
     flash_cases = [flash_bwd_case(dev, rate, gen, *case) for case in TRAIN_FLASH_CASES]
+    for case in flash_cases:
+        print(f"train: flash_attention_bwd {case['what']} {case['dtype']} d {case['shape'][-1]}: {case['route']}, "
+              f"{case['ms']} ms", flush=True)
     print(f"train: flash_attention_bwd against its plain version {json.dumps(flash_cases)}", flush=True)
     settle()
     ssd = ssd_bwd_case(dev, rate, gen)
+    print(f"train: ssd_scan_bwd: {ssd['route']}, {ssd['ms']} ms", flush=True)
     print(f"train: ssd_scan_bwd against its plain version {json.dumps(ssd)}", flush=True)
     settle()
     report["trainer"] = trainer_cell(dev, dispatch)
@@ -3648,8 +3681,8 @@ def train_phase(dev, rate, rows) -> None:
                     "takes through plain ssd_chunked",
         "launches": report["trainer"]["launches"]["ssd_scan_bwd"],
         "max_abs_err": ssd["max_abs_err"], "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
-        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"], "library_ms": None,
-        "train_shapes": [ssd],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"], "bound_f32_ms": ssd["bound_f32_ms"],
+        "library_ms": None, "train_shapes": [ssd],
     })
     report["phase_s"] = time.perf_counter() - phase_t0
     print(json.dumps({"train": report}), flush=True)

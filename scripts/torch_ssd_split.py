@@ -82,7 +82,10 @@ def build_variants(out: Path) -> tuple:
     from repro_torch.kernels import _build
 
     out.mkdir(parents=True, exist_ok=True)
-    source = (_build.CSRC / "ssd_scan.cu").read_text()
+    # The mma.sync helpers live in a header: inline it, so the edits below
+    # reach them and each variant compiles from its own directory.
+    source = (_build.CSRC / "ssd_scan.cu").read_text().replace(
+        '#include "ssd_mma.cuh"', (_build.CSRC / "ssd_mma.cuh").read_text())
     jobs = {}
     for name, (phases, edits) in VARIANTS.items():
         text = source

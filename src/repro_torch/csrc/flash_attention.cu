@@ -41,6 +41,11 @@
 //   p.astype(v.dtype) at :78 is f32); scores, softmax and the accumulation
 //   stay f32. TMA needs 16-byte aligned bases and strides; ops.py raises
 //   on a view without them.
+//   Where autograd will need it, the wrapper passes an `lse` buffer and
+//   the kernel also writes each row's log-sum-exp in log2 units of the
+//   scaled scores (m + log2 l, one store a row), which the tensor-core
+//   backward (csrc/flash_attention_bwd.cu) reads in place of recomputing
+//   Q K^T.
 // * f32, and bf16 at d 16 and 32: CUDA cores (flash_simt below), by choice and not as a fallback:
 //   the tensor cores take f32 only as TF32, whose 10-bit mantissa would
 //   break the f32 contract (atol 2e-5 against the plain version).  One
@@ -60,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 struct Args {
@@ -71,6 +78,8 @@ struct Args {
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   float scale;
   int64_t window;
+  float* lse;      // null, or [B, H, lse_ld] f32: each row's log2-sum-exp2 (tensor-core kernel)
+  int64_t lse_ld;
 };
 
 // -------------------------------------------------------------------------
@@ -263,7 +272,6 @@ int launch_simt(const Args& a, int64_t b, cudaStream_t s) {
 
 constexpr int BN = 64;             // keys per KV tile
 constexpr int WG_THREADS = 128;
-constexpr int BOX_COLS = 64;       // bf16 columns of one 128-byte swizzled box
 constexpr int KV_BOX = BN * 128;   // bytes of one K or V box
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -289,130 +297,6 @@ struct Tiles {
   // 1024-byte alignment of the swizzled boxes, then the barriers.
   static constexpr size_t smem_bytes = 1024 + BAR_OFF + (2 * STAGES + 1) * 8;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.  A wait
-// that never ends (a broken pipeline) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 28)) __trap();
-  }
-}
-
-// One 4-D TMA box (coordinates innermost first) into shared memory,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle.  K-major tiles
-// (Q, K): rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO is
-// unused.  MN-major tiles (V as the B operand of P V): K runs down the
-// 128-byte rows, 8-row groups 1024 bytes apart (SBO), 64-column boxes
-// KV_BOX apart (LBO).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from reading an accumulator before wgmma_wait.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory (K-major).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (bf16 pairs in the
-// m16n8k16 A layout), B from shared memory MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, "
-      "1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x in one MUFU instruction (flushing subnormal results to 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // The KV tiles a CTA walks: [k_begin, k_begin + n * BN) covers every key
 // some row of [q0, q0 + bm) sees.
@@ -619,6 +503,10 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
       const float lr = quad_sum(l[r]);
       const float inv = lr == 0.f ? 0.f : 1.f / lr;
       if (row >= a.sq) continue;
+      // For the backward: log2 of the row's sum of 2^(scaled score), +inf
+      // where the row sees no key (its P is then 0 everywhere).
+      if (a.lse != nullptr && lane % 4 == 0)
+        a.lse[(b * a.h + hh) * a.lse_ld + row] = lr > 0.f ? m[r] + log2f(lr) : INFINITY;
 #pragma unroll
       for (int c = 0; c < NB; ++c)
 #pragma unroll
@@ -631,46 +519,6 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
         }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function; the library links no
-// libcuda, so it is looked up through the runtime.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [B, S, heads, d] bf16 view as a 4-D tensor map (d, heads, S, B), box
-// (64 columns, 1 head, rows, 1), 128-byte swizzle, zeros past every edge.
-bool make_map(CUtensorMap* map, const void* base, int64_t d, int64_t heads, int64_t s, int64_t b,
-              int64_t sh, int64_t ss, int64_t sb, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh * 2), static_cast<cuuint64_t>(ss * 2),
-                                 static_cast<cuuint64_t>(sb * 2)};
-  const cuuint32_t box[4] = {BOX_COLS, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
@@ -708,15 +556,18 @@ int dispatch(int64_t d, bool bf16, const Args& a, int64_t b, cudaStream_t s) {
 }  // namespace
 
 // strides: q, k, v, out, each (batch, head, sequence), in elements.
-// dtype: 0 = f32, 1 = bf16.
+// dtype: 0 = f32, 1 = bf16.  lse: null, or (the tensor-core kernel only)
+// [B, H, lse_ld] f32 that receives each row's log-sum-exp in log2 units
+// of the scaled scores, which csrc/flash_attention_bwd.cu reads.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                int64_t b, int64_t h, int64_t kvh, int64_t sq, int64_t sk,
                                int64_t d, const int64_t* strides, double scale,
-                               int64_t window, int dtype, void* stream) {
+                               int64_t window, int dtype, void* lse, int64_t lse_ld,
+                               void* stream) {
   if (b == 0 || h == 0 || sq == 0) return 0;
   Args a{q, k, v, out, sq, sk, h, kvh,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
          strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
-         static_cast<float>(scale), window};
+         static_cast<float>(scale), window, static_cast<float*>(lse), lse_ld};
   return dispatch(d, dtype == 1, a, b, static_cast<cudaStream_t>(stream));
 }

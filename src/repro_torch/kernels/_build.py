@@ -46,7 +46,7 @@ SOURCES = (
     "flash_attention_bwd.cu",
     "ssd_scan_bwd.cu",
 )
-HEADERS = ("refcount_hist.cuh", "comb.cuh", "comb_range.cuh", "column_runs.cuh")
+HEADERS = ("refcount_hist.cuh", "comb.cuh", "comb_range.cuh", "column_runs.cuh", "wgmma.cuh", "ssd_mma.cuh")
 # No --use_fast_math: clone_chain's comb positions need IEEE division
 # to match the plain path bit for bit.
 NVCC_FLAGS = (

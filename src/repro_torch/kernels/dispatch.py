@@ -117,6 +117,17 @@ def check(
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
+def require_aligned(op: str, *, strides: int = 0, **tensors: Optional[torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless each tensor's base, and its first
+    ``strides`` strides in bytes, are multiples of 16: the card kernels
+    load rows 16 bytes at a time or by TMA.  A kernel copies no input to
+    align it; the caller does (``None`` entries are skipped)."""
+    for name, t in tensors.items():
+        if t is not None and (t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:strides])):
+            raise ValueError(f"{op}: {name} needs a 16-byte aligned base{' and strides' if strides else ''} "
+                             f"(address {t.data_ptr()}, strides {t.stride()})")
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per op since the last :func:`reset_launch_counts`."""
     return {name: get_op(name).launches for name in KNOWN_OPS}

@@ -15,9 +15,12 @@ On CUDA tensors the call is differentiable through one
 ``torch.autograd.Function``: its backward launches
 ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`), which
 recomputes P from the row log-sum-exp and writes dQ, dK and dV without
-atomics, so a repeat call is bit-equal.  On CPU tensors autograd
-differentiates the plain version, as the reference's ``jax.grad``
-differentiates ``attention_chunked``.
+atomics, so a repeat call is bit-equal.  The backward takes the same
+route as the forward (:func:`tensor_core_route`): on the tensor-core
+route the forward kernel also writes the row log-sum-exp when autograd
+will need it, and the ``Function`` keeps it for the backward.  On CPU
+tensors autograd differentiates the plain version, as the reference's
+``jax.grad`` differentiates ``attention_chunked``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import check, route
+from repro_torch.kernels.dispatch import check, require_aligned, route
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
 _P, _I, _D, _C = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
@@ -39,6 +42,26 @@ HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: those the bf16 tensor-core kernel takes (one wgmma k-step is 16 wide and
 #: a K tile a 64-column box); bf16 at 16 and 32 runs on the CUDA-core kernel
 WGMMA_HEAD_DIMS = (64, 112, 128, 256)
+#: query rows of one tensor-core tile: the row log-sum-exp's buffer holds
+#: this multiple of Sq a (batch, head), so each tile's 64 values are one
+#: TMA box
+LSE_ROWS = 64
+
+
+def tensor_core_route(dtype: torch.dtype, d: int) -> bool:
+    """Whether the kernels take inputs of ``dtype`` at head dim ``d`` on
+    the tensor cores (wgmma), forward and backward: bf16 at the head dims
+    of ``WGMMA_HEAD_DIMS``.  f32 (TF32 would break its limits) and bf16 at
+    d 16 and 32 (one wgmma k-step is 16 wide, a tile a 64-column box) run
+    on the CUDA cores."""
+    return dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+
+
+def _lse_buffer(q: torch.Tensor) -> torch.Tensor:
+    """The forward's row log-sum-exp for the tensor-core backward: f32
+    ``[B, H, Sq rounded up to LSE_ROWS]``."""
+    b, sq, h, _ = q.shape
+    return torch.empty((b, h, -(-sq // LSE_ROWS) * LSE_ROWS), dtype=torch.float32, device=q.device)
 
 
 def flash_attention(
@@ -69,30 +92,59 @@ def flash_attention(
     return _FlashAttention.apply(q, k, v, int(window), float(scale))
 
 
-def _forward(q, k, v, window: int, scale: float) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` on checked CUDA inputs."""
+def _forward(q, k, v, window: int, scale: float, lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu`` on checked CUDA inputs, counted
+    as one call of :func:`flash_attention`."""
+    out = _launch_forward(q, k, v, window, scale, lse)
+    flash_attention.launches += 1
+    return out
+
+
+def _launch_forward(q, k, v, window: int, scale: float, lse: torch.Tensor | None = None) -> torch.Tensor:
+    """The forward kernel's launch; with ``lse`` (tensor-core route only,
+    :func:`_lse_buffer`'s shape) it also writes each row's log-sum-exp
+    there, in log2 units of the scaled scores."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if sk == 0:  # no key: every row writes 0, and TMA takes no empty extent
+        if lse is not None:
+            lse.fill_(math.inf)
         return torch.zeros_like(q)
-    if q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
-                raise ValueError(f"{name}: TMA needs 16-byte aligned base and strides {t.stride()}")
+    if tensor_core_route(q.dtype, d):
+        require_aligned("flash_attention (TMA)", strides=3, q=q, k=k, v=v)
+    elif lse is not None:
+        raise ValueError("the CUDA-core forward writes no log-sum-exp")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     out = torch.empty_like(q)
     ot = out.transpose(1, 2)
     strides = (ctypes.c_int64 * 12)(*(s for t in (qt, kt, vt, ot) for s in t.stride()[:3]))
     _build.launch(
         "flash_attention",
-        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _D, _I, _C),
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _D, _I, _C, _P, _I),
         q.device,
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         b, h, kvh, sq, sk, d,
         ctypes.cast(strides, ctypes.c_void_p), float(scale), int(window), _DTYPES[q.dtype],
+        ctypes.c_void_p(None if lse is None else lse.data_ptr()), 0 if lse is None else lse.shape[-1],
     )
-    flash_attention.launches += 1
     return out
+
+
+def forward_lse(q, k, v, *, window: int = 0, scale: float | None = None):
+    """The forward on the tensor-core route, as the autograd ``Function``
+    runs it when it keeps the log-sum-exp: ``(out, lse)``, ``lse`` each
+    row's log-sum-exp of the scaled scores in log2 units
+    (:func:`_lse_buffer`'s shape), for a direct call of
+    :func:`flash_attention_bwd`.  One call of :func:`flash_attention`,
+    counted as one.  CUDA inputs on the tensor-core route only
+    (:func:`tensor_core_route`)."""
+    if route(q, k, v) == "cpu" or not tensor_core_route(q.dtype, q.shape[-1]):
+        raise ValueError(f"the row log-sum-exp is the tensor-core forward's ({q.dtype}, d {q.shape[-1]}, "
+                         f"{q.device})")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    lse = _lse_buffer(q)
+    return _forward(q, k, v, int(window), float(scale), lse), lse
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -100,15 +152,17 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window, scale):
-        out = _forward(q, k, v, window, scale)
-        ctx.save_for_backward(q, k, v, out)
+        keep = tensor_core_route(q.dtype, q.shape[-1]) and any(ctx.needs_input_grad[:3])
+        lse = _lse_buffer(q) if keep else None
+        out = _forward(q, k, v, window, scale, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.window, ctx.scale = window, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, window=ctx.window, scale=ctx.scale)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, window=ctx.window, scale=ctx.scale, lse=lse)
         return dq, dk, dv, None, None
 
 
@@ -124,12 +178,21 @@ def flash_attention_bwd(
     *,
     window: int = 0,
     scale: float | None = None,
+    lse: torch.Tensor | None = None,
 ):
     """The gradient of :func:`flash_attention`: ``(dq, dk, dv)`` in q's
-    dtype.  CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (three
-    launches, counted as one call: the row log-sum-exp and
-    ``rowsum(dout * out)``, then dK and dV, then dQ); CPU tensors run
-    :func:`flash_attention_bwd_ref`, which ignores ``out``."""
+    dtype.  CUDA tensors launch ``csrc/flash_attention_bwd.cu``, its
+    launches counted as one call, on the forward's route
+    (:func:`tensor_core_route`).  On the tensor cores, two:
+    ``rowsum(dout * out)``, then dK and dV with dQ in one launch, reading
+    the row log-sum-exp that the forward kernel wrote into ``lse`` (log2
+    units, :func:`_lse_buffer`'s shape): the autograd ``Function`` keeps
+    it, and :func:`forward_lse` gives it with the output for a direct
+    call.  There ``lse`` is required and the inputs must sit at 16-byte
+    aligned addresses (TMA), else ``ValueError``.  On the CUDA cores, three:
+    the row log-sum-exp and ``rowsum(dout * out)``, then dK and dV, then dQ;
+    ``lse`` is not read.  CPU tensors run :func:`flash_attention_bwd_ref`,
+    which ignores ``out`` and ``lse``."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -151,14 +214,22 @@ def flash_attention_bwd(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if sq == 0 or sk == 0 or b == 0 or h == 0:  # nothing is visible: every gradient is 0
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if tensor_core_route(q.dtype, d):
+        require_aligned("flash_attention_bwd (TMA)", strides=3, q=q, k=k, v=v, out=out, dout=dout)
+        if lse is None or lse.shape != _lse_buffer(q).shape or lse.dtype != torch.float32 \
+                or not lse.is_contiguous():
+            raise ValueError(f"lse {None if lse is None else (tuple(lse.shape), lse.dtype)}: the tensor-core "
+                             f"backward reads the forward's [B, H, Sq rounded up to {LSE_ROWS}] f32 "
+                             f"(forward_lse)")
+    else:
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     _build.launch(
         "flash_attention_bwd",
-        (_P,) * 10 + (_I, _I, _I, _I, _I, _I, _D, _I, _C),
+        (_P,) * 10 + (_I, _I, _I, _I, _I, _I, _D, _I, _C, _I),
         q.device,
         *(_build.ptr(t) for t in (q, k, v, out, dout, dq, dk, dv, lse, delta)),
-        b, h, kvh, sq, sk, d, float(scale), int(window), _DTYPES[q.dtype],
+        b, h, kvh, sq, sk, d, float(scale), int(window), _DTYPES[q.dtype], lse.shape[-1],
     )
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -17,10 +17,11 @@ dropped.
 
 On CUDA tensors the call is differentiable through one
 ``torch.autograd.Function`` whose backward launches
-``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd`) over the same padded
-length: the gradient of the final state, where one is given, enters the
-reverse sweep as its starting state, and the gradients of the padded
-tail are dropped.  On CPU tensors autograd differentiates the plain
+``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd`, chunk-parallel like the
+forward, under :func:`bwd_plan`) over the same padded length: the
+gradient of the final state, where one is given, starts the backward
+recurrence over the chunks, and the gradients of the padded tail are
+dropped.  On CPU tensors autograd differentiates the plain
 version, as the reference's ``jax.grad`` differentiates ``ssd_chunked``.
 """
 
@@ -32,7 +33,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import check, route
+from repro_torch.kernels.dispatch import check, require_aligned, route
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 _P, _I, _C = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -193,8 +194,7 @@ def card_call(x, dt, a, bmat, cmat, q, *, heads=HEADS_PER_CTA, p_tile=None):
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     plan = card_plan(b, s, h, p, n, q, x.dtype, heads=heads, p_tile=p_tile)
-    if any(t.data_ptr() % 16 for t in (x, bmat, cmat)):
-        raise ValueError("ssd_scan on the card takes x, bmat and cmat at 16-byte aligned addresses")
+    require_aligned("ssd_scan", x=x, bmat=bmat, cmat=cmat)
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     hout = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     scratch = torch.empty(plan["cb_floats"] + plan["sc_floats"], dtype=torch.float32, device=x.device)
@@ -209,31 +209,51 @@ def card_call(x, dt, a, bmat, cmat, q, *, heads=HEADS_PER_CTA, p_tile=None):
     return y, hout
 
 
-#: The backward kernel's largest chunk (its q x q forms live in shared
-#: memory), and its P tiles: the widest that divides P.
-BWD_MAX_CHUNK = 64
-BWD_P_TILES = (32, 16)
+#: Heads per CTA of the backward's two chunk-parallel kernels (C Bᵀ is
+#: formed once for them, and dB and dC summed over them in order).
+BWD_HEADS_PER_CTA = 4
 
 
 def bwd_plan(b, s, h, p, n, q) -> dict:
-    """The backward kernel's launch plan from shapes alone: a CTA per (P
-    tile, head, batch); shared memory ``4q(PT+1) + 2q(N+1) + 2PT(N+1) +
-    3q(q+1) + 7q + 8`` floats (184,608 bytes at mamba2-130m's q 64, PT 32,
-    N 128); scratch for each chunk's starting state (``b h (s/q) p n``
-    floats) and the partial sums of dB, dC (``h (p/PT) b s n`` floats
-    each), ddt (``(p/PT) b s h``) and da that one ``torch.sum`` reduces.
-    Raises ``ValueError`` on what the kernel does not take."""
-    if q > BWD_MAX_CHUNK:
-        raise ValueError(f"ssd_scan's backward on the card takes a chunk up to {BWD_MAX_CHUNK} (got {q})")
-    pt = next((t for t in BWD_P_TILES if p % t == 0), None)
-    if pt is None:
-        raise ValueError(f"ssd_scan's backward on the card takes P as a multiple of 16 (got {p})")
-    smem = 4 * (4 * q * (pt + 1) + 2 * q * (n + 1) + 2 * pt * (n + 1) + 3 * q * (q + 1) + 7 * q + 8)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan's backward at chunk {q}, N {n} needs {smem} bytes of shared "
-                         f"memory a CTA, above the card's {SMEM_LIMIT}")
-    return {"p_tile": pt, "smem": smem, "ctas": b * h * (p // pt),
-            "hin_floats": b * h * (s // q) * p * n, "part_floats": h * (p // pt) * b * s * n}
+    """The backward's launch plan from shapes alone (``csrc/ssd_scan_bwd.cu``).
+
+    Three launches: the chunk states and gradient increments, a CTA per
+    (head group, chunk, batch); the two recurrences over the chunks, a
+    thread per four (b, h, p, n); the gradients, a CTA per (head group,
+    chunk, batch).  The chunk ``q``, ``p`` and ``n`` must be multiples of
+    16 (mma tiles).  Shared memory, f32, with ``NT`` = 4 where 32 divides
+    the width, else 2:
+
+    * states: ``4 (2q(n+8) + 2q(p+8) + q)``;
+    * gradients: ``4 (2q(n+4) + 3q(q+4) + 2q(p+4) + 2p(n+4) + 10q + q p/(8 NTp)
+      + q n/(8 NTn) + 8)``;
+
+    106,752 and 226,336 bytes at mamba2-130m's widths (q 64, p 64, n 128);
+    more than 227 KB raises ``ValueError``.  Scratch: the chunk states,
+    overwritten by each chunk's h_in, and the gradient increments,
+    overwritten by each chunk's G (``b h (s/q) p n`` floats each: 100.7 MB
+    apiece at [2, 4,096, 24, 64, 128]), each chunk's sum of dt a (``b h
+    (s/q)``); the partial sums of dB and dC per head group (``(h/heads) b s
+    n`` each) and of da per (b, chunk) (``b (s/q) h``), which one
+    ``torch.sum`` each reduces."""
+    for name, v in (("chunk", q), ("P", p), ("N", n)):
+        if v <= 0 or v % 16:
+            raise ValueError(f"ssd_scan's backward on the card takes the chunk, P and N as multiples of 16 "
+                             f"(got {name} = {v})")
+    heads = BWD_HEADS_PER_CTA
+    nt = {w: 4 if w % 32 == 0 else 2 for w in (p, n)}
+    states_smem = 4 * (2 * q * (n + 8) + 2 * q * (p + 8) + q)
+    grads_smem = 4 * (2 * q * (n + 4) + 3 * q * (q + 4) + 2 * q * (p + 4) + 2 * p * (n + 4) + 10 * q
+                      + q * p // (8 * nt[p]) + q * n // (8 * nt[n]) + 8)
+    if max(states_smem, grads_smem) > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan's backward at chunk {q}, P {p}, N {n} needs {max(states_smem, grads_smem)} "
+                         f"bytes of shared memory a CTA, above the card's {SMEM_LIMIT}")
+    nc, groups = s // q, math.ceil(h / heads)
+    return {"heads": heads, "groups": groups,
+            "states_ctas": b * nc * groups, "recur_threads": b * h * p * n // 4, "grads_ctas": b * nc * groups,
+            "states_smem": states_smem, "grads_smem": grads_smem,
+            "state_floats": b * h * nc * p * n, "tot_floats": b * h * nc,
+            "part_floats": groups * b * s * n, "da_floats": b * nc * h}
 
 
 def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh=None, *, chunk: int = 64):
@@ -241,11 +261,14 @@ def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh=None, *, chunk: int = 64):
     gradient) and ``dh`` [B,H,P,N] (the final state's, or None):
     ``(dx, ddt, da, dbmat, dcmat)``, dx, dbmat and dcmat in the inputs'
     dtype, ddt and da f32.  CUDA tensors launch ``csrc/ssd_scan_bwd.cu``
-    (one launch, over the length the forward ran: a chunk that is no
-    multiple of 16 over a ``dt = 0`` tail whose gradients are dropped;
-    bf16 inputs are widened to f32 first); the per-(head, P tile) partial
-    sums of dB, dC, ddt and da are reduced by one ``torch.sum`` each, in
-    a fixed order.  CPU tensors run :func:`ssd_scan_bwd_ref`."""
+    (three launches under :func:`bwd_plan`, counted as one call, over the
+    length the forward ran: a chunk that is no multiple of 16 over a
+    ``dt = 0`` tail whose gradients are dropped; bf16 inputs are widened
+    to f32 first); x, bmat, cmat, dy and dh must then sit at 16-byte
+    aligned addresses, as the forward's inputs (``ValueError`` otherwise);
+    the partial sums of dB and dC per head group and of da per (b, chunk)
+    are reduced by one ``torch.sum`` each, in a fixed order.  CPU tensors
+    run :func:`ssd_scan_bwd_ref`."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     check(bmat, "bmat", x.dtype, (b, s, n))
@@ -272,25 +295,27 @@ def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh=None, *, chunk: int = 64):
         dyf = torch.cat([dyf, dyf.new_zeros((b, s_pad - s, h, p))], dim=1)
     af = a.float().contiguous()
     dhf = None if dh is None else dh.float().contiguous()
-    pt = plan["p_tile"]
-    npt = p // pt
+    require_aligned("ssd_scan_bwd", x=xf, bmat=bf, cmat=cf, dy=dyf, dh=dhf)
+    nc = s_pad // qc
     dx = torch.empty_like(xf)
-    ddt = torch.empty((npt, b, s_pad, h), dtype=torch.float32, device=dev)
-    da = torch.empty((npt, b, h), dtype=torch.float32, device=dev)
-    db = torch.empty((h * npt, b, s_pad, n), dtype=torch.float32, device=dev)
+    ddt = torch.empty((b, s_pad, h), dtype=torch.float32, device=dev)
+    da = torch.empty((b, nc, h), dtype=torch.float32, device=dev)
+    db = torch.empty((plan["groups"], b, s_pad, n), dtype=torch.float32, device=dev)
     dc = torch.empty_like(db)
-    hin = torch.empty(plan["hin_floats"], dtype=torch.float32, device=dev)
+    st = torch.empty(plan["state_floats"], dtype=torch.float32, device=dev)
+    ug = torch.empty_like(st)
+    tot = torch.empty(plan["tot_floats"], dtype=torch.float32, device=dev)
     _build.launch(
         "ssd_scan_bwd",
-        (_P,) * 13 + (_I,) * 7,
+        (_P,) * 15 + (_I,) * 7,
         dev,
         *(_build.ptr(t) for t in (xf, dtf, af, bf, cf, dyf)),
         ctypes.c_void_p(None if dhf is None else dhf.data_ptr()),
-        *(_build.ptr(t) for t in (dx, ddt, da, db, dc, hin)),
-        b, s_pad, h, p, n, qc, pt,
+        *(_build.ptr(t) for t in (dx, ddt, da, db, dc, st, ug, tot)),
+        b, s_pad, h, p, n, qc, plan["heads"],
     )
     ssd_scan_bwd.launches += 1
-    return (dx[:, :s].to(x.dtype), ddt.sum(0)[:, :s], da.sum((0, 1)),
+    return (dx[:, :s].to(x.dtype), ddt[:, :s], da.sum((0, 1)),
             db.sum(0)[:, :s].to(bmat.dtype), dc.sum(0)[:, :s].to(cmat.dtype))
 
 

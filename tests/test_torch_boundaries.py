@@ -27,7 +27,12 @@ from repro_torch.kernels.clone_chain import clone_chain_kernel, weights_cdf  # n
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
 from repro_torch.kernels.cow_write import cow_write, cow_write_delta  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, WGMMA_HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    HEAD_DIMS,
+    WGMMA_HEAD_DIMS,
+    forward_lse,
+    tensor_core_route,
+)
 from repro_torch.kernels.refcount_update import refcount_delta  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
@@ -717,7 +722,10 @@ def flash_bwd_case(gen, shape, dtype, window):
     k = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype)
     dout = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
-    return q, k, v, flash_attention(q, k, v, window=window), dout
+    if tensor_core_route(dtype, d):  # the backward reads the forward's row log-sum-exp
+        out, lse = forward_lse(q, k, v, window=window)
+        return q, k, v, out, dout, lse
+    return q, k, v, flash_attention(q, k, v, window=window), dout, None
 
 
 #: The backward kernels against their plain versions (autograd of the
@@ -737,53 +745,80 @@ class TestBackwardKernelsOnCard:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("window", [0, 45])
     def test_flash_attention_bwd(self, cuda_device, d, dtype, window):
-        q, k, v, out, dout = flash_bwd_case(rnd.generator(d + window, cuda_device), (2, 200, 6, 2, d),
-                                            dtype, window)
-        got = flash_attention_bwd(q, k, v, out, dout, window=window)
+        q, k, v, out, dout, lse = flash_bwd_case(rnd.generator(d + window, cuda_device), (2, 200, 6, 2, d),
+                                                 dtype, window)
+        got = flash_attention_bwd(q, k, v, out, dout, window=window, lse=lse)
         want = flash_attention_bwd(*(t.cpu() for t in (q, k, v, out, dout)), window=window)
         grads_within(got, want, BWD_TOL[dtype])
 
-    @pytest.mark.parametrize("d", [32, 128, 256])
+    @pytest.mark.parametrize("dtype,d", [(torch.float32, 32), (torch.float32, 128), (torch.float32, 256),
+                                         (torch.bfloat16, 64), (torch.bfloat16, 112), (torch.bfloat16, 128),
+                                         (torch.bfloat16, 256)])
     @pytest.mark.parametrize("window", [0, 45, 1000])
-    @pytest.mark.parametrize("b,s,h,kvh", [(1, 1, 4, 4), (3, 63, 3, 1), (1, 300, 8, 1), (2, 130, 16, 2)])
-    def test_flash_attention_bwd_tiling(self, cuda_device, d, window, b, s, h, kvh):
+    @pytest.mark.parametrize("b,s,h,kvh", [(1, 1, 4, 4), (3, 63, 3, 1), (1, 300, 8, 1), (2, 130, 16, 2),
+                                           (1, 130, 24, 2)])
+    def test_flash_attention_bwd_tiling(self, cuda_device, dtype, d, window, b, s, h, kvh):
         """Partial tiles (S of 1, 63, 130, 300), a window inside one tile
-        and one longer than S, G of 1, 3 and 8; f32."""
-        q, k, v, out, dout = flash_bwd_case(rnd.generator(d + s + window, cuda_device), (b, s, h, kvh, d),
-                                            torch.float32, window)
-        got = flash_attention_bwd(q, k, v, out, dout, window=window)
+        and one longer than S, G of 1, 3, 8 and 12 (starcoder2-3b's 24 over
+        2); f32 on the CUDA cores, bf16 on the tensor cores (d 112: the
+        columns TMA fills with zeros)."""
+        q, k, v, out, dout, lse = flash_bwd_case(rnd.generator(d + s + window, cuda_device),
+                                                 (b, s, h, kvh, d), dtype, window)
+        got = flash_attention_bwd(q, k, v, out, dout, window=window, lse=lse)
         want = flash_attention_bwd(*(t.cpu() for t in (q, k, v, out, dout)), window=window)
-        grads_within(got, want, BWD_TOL[torch.float32])
+        grads_within(got, want, BWD_TOL[dtype])
+
+    def test_flash_attention_bwd_tma_alignment(self, cuda_device):
+        """The tensor-core backward loads by TMA: a bf16 view off 16-byte
+        alignment raises, and the same values aligned run.  It reads the
+        forward's row log-sum-exp: a call without it raises."""
+        q, k, v, out, dout, lse = flash_bwd_case(rnd.generator(4, cuda_device), (1, 64, 4, 2, 64),
+                                                 torch.bfloat16, 0)
+        flat = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda_device)
+        off = flat[1:1 + q.numel()].view(q.shape)
+        off.copy_(q)
+        assert off.data_ptr() % 16
+        with pytest.raises(ValueError, match="TMA"):
+            flash_attention_bwd(off, k, v, out, dout, lse=lse)
+        with pytest.raises(ValueError, match="lse"):
+            flash_attention_bwd(q, k, v, out, dout)
+        assert all(torch.equal(x, y) for x, y in zip(flash_attention_bwd(off.clone(), k, v, out, dout, lse=lse),
+                                                      flash_attention_bwd(q, k, v, out, dout, lse=lse), strict=True))
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_flash_attention_bwd_repeat_bit_equal(self, cuda_device, dtype):
-        args = flash_bwd_case(rnd.generator(5, cuda_device), (2, 384, 8, 2, 128), dtype, 0)
-        first = flash_attention_bwd(*args)
-        second = flash_attention_bwd(*args)
+        *args, lse = flash_bwd_case(rnd.generator(5, cuda_device), (2, 384, 8, 2, 128), dtype, 0)
+        first = flash_attention_bwd(*args, lse=lse)
+        second = flash_attention_bwd(*args, lse=lse)
         assert all(torch.equal(x, y) for x, y in zip(first, second, strict=True))
 
     def test_flash_attention_autograd(self, cuda_device):
         """``loss.backward()`` through the forward kernel runs the backward
         kernel once, with the gradients of a direct call."""
-        q, k, v, _, dout = flash_bwd_case(rnd.generator(6, cuda_device), (2, 130, 4, 2, 64),
-                                          torch.bfloat16, 0)
+        q, k, v, _, dout, lse = flash_bwd_case(rnd.generator(6, cuda_device), (2, 130, 4, 2, 64),
+                                               torch.bfloat16, 0)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         dispatch.reset_launch_counts()
         out = flash_attention(*leaves)
         (out.float() * dout.float()).sum().backward()
         counts = dispatch.launch_counts()
         assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
-        want = flash_attention_bwd(q, k, v, out.detach(), dout)
+        want = flash_attention_bwd(q, k, v, out.detach(), dout, lse=lse)
         assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want, strict=True))
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("with_dh", [False, True])
-    def test_ssd_scan_bwd(self, cuda_device, dtype, with_dh):
-        """mamba2-130m's head widths (P 64, N 128, chunk 64), 3 heads."""
-        gen = rnd.generator(7, cuda_device)
-        args = ssd_inputs(gen, 2, 256, 3, 64, 128, dtype, cuda_device)
-        dy = torch.randn((2, 256, 3, 64), generator=gen, device=cuda_device)
-        dh = torch.randn((2, 3, 64, 128), generator=gen, device=cuda_device) if with_dh else None
+    @pytest.mark.parametrize("s,h", [(256, 3), (64, 3), (128, 3), (4096, 1), (1, 3), (20, 3), (40, 3), (256, 1),
+                                     (256, 24)])
+    def test_ssd_scan_bwd(self, cuda_device, dtype, with_dh, s, h):
+        """mamba2-130m's head widths (P 64, N 128, chunk 64): 1, 2, 4 and
+        64 chunks, the padded tails of S = 1, 20 and 40, and 1, 3 and 24
+        heads (head groups of 4, one of them partial, and all six); S 256
+        with 3 heads on the generator seed it has always had."""
+        gen = rnd.generator(7 if (s, h) == (256, 3) else 7 + s + h, cuda_device)
+        args = ssd_inputs(gen, 2, s, h, 64, 128, dtype, cuda_device)
+        dy = torch.randn((2, s, h, 64), generator=gen, device=cuda_device)
+        dh = torch.randn((2, h, 64, 128), generator=gen, device=cuda_device) if with_dh else None
         got = ssd_scan_bwd(*args, dy, dh)
         want = ssd_scan_bwd(*(t.cpu() for t in args), dy.cpu(), None if dh is None else dh.cpu())
         grads_within(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
@@ -791,9 +826,9 @@ class TestBackwardKernelsOnCard:
     @pytest.mark.parametrize("s,q,p,n", [(64, 64, 32, 48), (320, 64, 32, 48), (16, 16, 16, 16),
                                          (144, 16, 48, 32), (40, 64, 32, 16), (20, 64, 64, 128)])
     def test_ssd_scan_bwd_chunks(self, cuda_device, s, q, p, n):
-        """One chunk and many, chunk 16 and 64, P tiles of 16 and 32, and
-        lengths whose chunk runs over a dt = 0 tail (40, 20); f32, with
-        the final state's gradient."""
+        """One chunk and many, chunk 16 and 64, P and N at 16, 32 and 48
+        (mma tiles of 16 and 32 columns), and lengths whose chunk runs over
+        a dt = 0 tail (40, 20); f32, with the final state's gradient."""
         gen = rnd.generator(s + q + p, cuda_device)
         args = ssd_inputs(gen, 2, s, 5, p, n, torch.float32, cuda_device)
         dy = torch.randn((2, s, 5, p), generator=gen, device=cuda_device)

@@ -50,6 +50,8 @@ from repro_torch.kernels.clone_chain import (  # noqa: E402
 from repro_torch.kernels.cow_gather import cow_gather, pool_compact  # noqa: E402
 from repro_torch.kernels.cow_write import cow_write, cow_write_delta  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS as FLASH_HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import _lse_buffer, tensor_core_route  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels.refcount_update import (  # noqa: E402
     refcount_delta,
@@ -642,6 +644,18 @@ class TestFlashAttention:
             np.testing.assert_allclose(a.grad.numpy(), g.numpy(), rtol=1e-6, atol=1e-7)
         assert dispatch.launch_counts()["flash_attention_bwd"] == 0
 
+    def test_tensor_core_route(self):
+        """The (dtype, head dim) pairs whose forward and backward run on the
+        tensor cores: bf16 at 64, 112, 128 and 256; f32 everywhere and bf16
+        at 16 and 32 stay on the CUDA cores.  The backward's row
+        log-sum-exp buffer is padded to whole 64-row tiles."""
+        pairs = [(dt, d) for dt in (torch.float32, torch.bfloat16) for d in FLASH_HEAD_DIMS
+                 if tensor_core_route(dt, d)]
+        assert pairs == [(torch.bfloat16, 64), (torch.bfloat16, 112), (torch.bfloat16, 128), (torch.bfloat16, 256)]
+        assert not tensor_core_route(torch.float16, 128)
+        q = torch.zeros((2, 130, 6, 64), dtype=torch.bfloat16)
+        assert _lse_buffer(q).shape == (2, 6, 192) and _lse_buffer(q).dtype == torch.float32
+
     def test_rejects_bad_inputs(self):
         q, k, v = attention_case(0, 1, 16, 4, 2, 8, "float32")
         with pytest.raises(TypeError):
@@ -709,18 +723,40 @@ class TestSSDScan:
             np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=2e-5 * np.abs(w).max())
 
     def test_bwd_plan_at_mamba2_widths(self):
-        """The backward kernel's plan at mamba2-130m's training shape
-        (B = 2, S = 4,096, H 24, P 64, N 128, chunk 64): a CTA per (P tile of
-        32, head, batch), 184,608 bytes of shared memory, scratch for the
-        chunk states and the per-(head, P tile) partials; a chunk above 64,
-        P no multiple of 16 or tiles beyond a CTA's shared memory raise."""
+        """The backward's plan at mamba2-130m's training shape (B = 2, S =
+        4,096, H 24, P 64, N 128, chunk 64): both chunk-parallel launches a
+        CTA per (group of 4 heads, chunk, batch), 768 of them, more than the
+        card's 132 SMs (the kernel it replaced ran 96 in all); a thread per
+        four state elements for the recurrences; shared memory within the
+        227 KB a CTA may take; scratch for the chunk states and increments
+        (100.7 MB apiece) and the partials; a chunk above 64, P no multiple
+        of 16 or tiles beyond a CTA's shared memory raise."""
         plan = bwd_plan(2, 4096, 24, 64, 128, 64)
-        assert (plan["p_tile"], plan["ctas"], plan["smem"]) == (32, 96, 184_608)
-        assert plan["hin_floats"] == 2 * 24 * 64 * 64 * 128 and plan["part_floats"] == 24 * 2 * 2 * 4096 * 128
-        assert bwd_plan(1, 64, 2, 48, 32, 16)["p_tile"] == 16
+        assert (plan["heads"], plan["groups"]) == (4, 6)
+        assert plan["states_ctas"] == plan["grads_ctas"] == 2 * 64 * 6 >= 132
+        assert plan["recur_threads"] == 2 * 24 * 64 * 128 // 4
+        assert (plan["states_smem"], plan["grads_smem"]) == (106_752, 226_336)
+        assert max(plan["states_smem"], plan["grads_smem"]) < 232_448
+        assert plan["state_floats"] == 2 * 24 * 64 * 64 * 128 and plan["state_floats"] * 4 == 100_663_296
+        assert plan["tot_floats"] == 2 * 24 * 64 and plan["da_floats"] == 2 * 64 * 24
+        assert plan["part_floats"] == 6 * 2 * 4096 * 128
+        assert bwd_plan(1, 64, 5, 48, 32, 16)["groups"] == 2
         for shape in ((1, 128, 2, 64, 128, 128), (1, 64, 2, 24, 32, 64), (1, 64, 2, 32, 512, 64)):
             with pytest.raises(ValueError):
                 bwd_plan(*shape)
+
+    @pytest.mark.parametrize(
+        "shape",
+        [(64, 24, 32, 64), (64, 32, 40, 64), (72, 32, 32, 24), (64, 32, 32, 0),
+         (128, 64, 128, 128), (64, 64, 512, 64), (64, 64, 128, 80)],
+    )
+    def test_bwd_plan_refuses(self, shape):
+        """The backward's refusals, before any launch: P, N or the chunk not
+        a multiple of 16 (or 0), or tiles beyond a CTA's shared memory
+        (chunk 128 or 80 at N 128; N 512): ValueError."""
+        s, p, n, q = shape
+        with pytest.raises(ValueError):
+            bwd_plan(1, s, 2, p, n, q)
 
     def test_card_plan_at_mamba2_widths(self):
         """The card's launch plan at mamba2-130m's widths (B = 4, S = 2,048,
