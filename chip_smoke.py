@@ -37,9 +37,10 @@ Phases (any failed check raises, and the script exits non-zero):
 4. A small filter run on the card against the same run on the CPU path,
    fed the same draws: equal tables, log-evidence to rtol 1e-5.
 5. One more LAZY_SR run under ``torch.profiler`` (CUDA activity only),
-   run last, after phases 6-9.  A profile's device numbers are null unless
-   its trace holds a record of every launch of a kernel whose wrapper
-   counts them (``cow_write`` here, ``paged_attention`` in phase 6).
+   at T = 512 (``PROFILE_T``), run last.  A profile's device numbers are
+   null unless its trace holds a record of every launch of a kernel whose
+   wrapper counts them (``cow_write`` here, ``paged_attention`` in phase
+   6).
 6. The serving path, with the counters set to 0 just before and read
    just after: ``ServeEngine`` on starcoder2-3b at its published widths
    (30 layers, d_model 3072, 24 heads over 2 KV heads, d_ff 12288, vocab
@@ -262,7 +263,7 @@ Phases (any failed check raises, and the script exits non-zero):
     ancestors, a within-shard pair clone, ``write_at``, lockstep ``grow``
     and ``compact``) on 1, 2 and 4 in-process shards in every mode, each
     stacked leaf, the trajectories and the per-shard blocks equal on the
-    card and on the CPU; the LGSSM at N = 65,536, T = 256 (``SHARDED_T``)
+    card and on the CPU; the LGSSM at N = 65,536, T = 128 (``SHARDED_T``)
     on one device and over 1, 2 and 4 shards, the 4-shard runs in every
     mode, with the counters set to 0 just before the 4-shard LAZY_SR run
     and read just after (``cow_write``, ``refcount_update`` and
@@ -330,11 +331,34 @@ Phases (any failed check raises, and the script exits non-zero):
     launches by kernel) and adds the ``flash_attention_bwd`` and
     ``ssd_scan_bwd`` rows.
 
-Phase 14 runs PCFG at T = 1,000 (``PROGRAM_T``; the paper's 3,262 is
-its ``PAPER_T``), so the script keeps within its time budget.
+19. The paged cell (``repro_torch.launch.paged_cell``) at qwen2.5-32b's
+    full width (64 layers, d_model 5,120, 40 heads over 8 KV heads of
+    128, d_ff 27,648, vocab 152,064; bf16 weights drawn leaf by leaf in
+    bf16, 65.5 GB) on a one-rank ``make_host_mesh()`` (NCCL), run last
+    but for the profile, with the counters set to 0 just before its
+    decode and read just after.  One prompt of 3,968 tokens (prefilled
+    through the dense cache, ``flash_attention`` on the card) forked to 8
+    rows with pages of 128: 31 shared pages and a tail page a row, 39 in
+    use of the 81-block pool the reference's sparse bound gives at 8 rows
+    (``paged_cell.pool_blocks``); 16 greedy decode steps through the
+    cell's step, ``paged_attention`` at a group of 5.  Checks: every
+    logit finite; ``paged_attention`` launched 64 times a step; layers 0
+    and 63's calls of one more step against the plain version (atol 1e-2
+    on bf16, rows 7-8's limit) and a repeat call bit-equal; that step's
+    logits against the same step with the plain attention (within
+    ``PAGED_CELL_TOL`` of its largest |logit|).  Prints ``{"paged_cell":
+    ...}``: the median step wall (CUDA events), the kernel's time, plain
+    time and bound at this shape, the one-card traced step's compute and
+    memory terms (``analyze_traced``) beside the wall, the peak memory and
+    the phase's wall.
+
+Phase 14 runs PCFG at T = 500 (``PROGRAM_T``; the paper's 3,262 is its
+``PAPER_T``), phase 17 at T = 128 (``SHARDED_T``) and phase 5 at T = 512
+(``PROFILE_T``), so the script keeps within its time budget; each phase
+prints its wall (``phase_walls``).
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
-``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"sharded": ...}``, ``{"programs": ...}``, ``{"families": ...}``, ``{"dense_cache": ...}``, ``{"train": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
+``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"sharded": ...}``, ``{"programs": ...}``, ``{"families": ...}``, ``{"dense_cache": ...}``, ``{"train": ...}``, ``{"paged_cell": ...}``, ``{"phase_walls": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -381,6 +405,9 @@ TF32_RATE = 495e12
 # Phase 10: the delta store's block size, and the mid-block generation at
 # which the two runs are also compared (delta blocks live there).
 DELTA_BLOCK = 8
+# Phase 5's traced generations: the per-generation profile needs no more
+# (the script's time budget).
+PROFILE_T = 512
 DELTA_MID = N_STEPS // 2 + 4
 # Phase 11: flash attention at starcoder2-3b's widths (24 heads over 2 KV
 # heads, d 128) at two prefill shapes and at gemma3-12b's local layers (16
@@ -1849,7 +1876,7 @@ PROGRAMS_SMALL = (64, 16)
 # runs took ~500 s of the script at the paper's 3,262 and 310-480 s at
 # 2,000, where a run on a slow host reached 1,267 s of the script's
 # 1,200-s limit; its host-bound bookkeeping grows with T.
-PROGRAM_T = {"pcfg": 1000}
+PROGRAM_T = {"pcfg": 500}
 # Stacks in the masked write_at check at depth MAX_DEPTH - 1.
 STACK_CHECK_ROWS = 1024
 PROGRAM_OPS = {
@@ -2943,7 +2970,7 @@ def dense_cache_phase(dev, rate, rows) -> None:
 # SHARDED_T generations, over 1, 2 and 4 in-process shards on the card; the
 # store program at SHARDED_STORE_N on the card and on the CPU; a sharded
 # SMCDecoder on phase 12's request shape.
-SHARDED_T = 256
+SHARDED_T = 128
 SHARDED_SHARDS = (1, 2, 4)
 SHARDED_STORE_N = 4_096
 SHARDED_OPS = ("cow_write", "refcount_update", "cow_gather")
@@ -3688,6 +3715,136 @@ def train_phase(dev, rate, rows) -> None:
     print(json.dumps({"train": report}), flush=True)
 
 
+# Phase 19: the paged cell at qwen2.5-32b's width.  PAGED_CELL_TOL bounds
+# the step's logits, kernel against plain attention, relative to the
+# step's largest |logit|: 64 layers of bf16 activations carry each
+# layer's rounding-level difference (the kernel's per-call limit, 1e-2 on
+# outputs of magnitude ~1) forward.
+PAGED_CELL = {"arch": "qwen25_32b", "prompt": 3968, "rows": 8, "block": 128, "seq": 4096, "steps": 16}
+PAGED_CELL_TOL = 5e-2
+
+
+def paged_cell_phase(dev, rate, rows) -> None:
+    """Phase 19 (the module docstring)."""
+    from repro_torch.distributed.costs import traced_costs
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
+    from repro_torch.launch import paged_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.roofline.analysis import analyze_traced
+
+    t_phase = time.perf_counter()
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    c = PAGED_CELL
+    owned = not torch.distributed.is_initialized()
+    mesh = make_host_mesh()
+    cell = paged_cell.build(c["arch"], mesh, batch=c["rows"], seq=c["seq"], block_size=c["block"])
+    cfg, bs, n = cell.cfg, c["block"], c["rows"]
+    require(cell.b_local == n and cell.nb_local == paged_cell.pool_blocks(n, c["seq"] // bs),
+            f"paged cell: {n} rows a shard, {cell.nb_local} blocks")
+    lm = LanguageModel(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    t = time.perf_counter()
+    weights = lm.init(gen, device=dev)  # bf16 leaves, drawn in bf16
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    prompt = torch.randint(0, cfg.vocab_size, (1, c["prompt"]), generator=gen, device=dev)
+    t = time.perf_counter()
+    with torch.no_grad():
+        logits, dense = lm.prefill(weights, prompt, c["prompt"])
+    last = logits[0, -1].clone()
+    del logits
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    # The pool: the prompt's 31 whole pages shared by every row, a tail page a row.
+    shared = c["prompt"] // bs
+    pool = torch.zeros((cell.nb_local, cfg.n_layers, 2, bs, cfg.n_kv_heads, cfg.hd), dtype=torch_dtype(cfg.dtype),
+                       device=dev)
+    for kv, leaf in enumerate((dense.k, dense.v)):
+        pool[:shared, :, kv] = leaf[:, 0].reshape(cfg.n_layers, shared, bs, cfg.n_kv_heads, cfg.hd).transpose(0, 1)
+    del dense
+    tables = torch.full((n, c["seq"] // bs), -1, dtype=torch.int32, device=dev)
+    tables[:, :shared] = torch.arange(shared, dtype=torch.int32, device=dev)
+    tables[:, shared] = shared + torch.arange(n, dtype=torch.int32, device=dev)
+    lengths = torch.full((n,), c["prompt"], dtype=torch.int32, device=dev)
+    # Each row's first token: a Gumbel draw from the prompt's last logits.
+    noise = -torch.log(-torch.log(torch.rand((n, last.numel()), generator=gen, device=dev)))
+    tokens = (last[None] + noise).argmax(-1, keepdim=True).to(torch.int32)
+    del noise
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    walls, finite = [], True
+    for _ in range(c["steps"]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_logits, pool, lengths = cell.step(weights, pool, tables, lengths, tokens)
+        end.record()
+        tokens = step_logits.argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(end))
+        finite = finite and bool(torch.isfinite(step_logits).all())
+    launches = dispatch.launch_counts()
+    require(finite, "paged cell: every step's logits finite")
+    require(launches["paged_attention"] == cfg.n_layers * c["steps"],
+            f"paged cell: paged_attention launched {launches['paged_attention']} times, "
+            f"{cfg.n_layers} a step")
+    require(int(lengths[0]) == c["prompt"] + c["steps"], "paged cell: lengths advanced a step at a time")
+    # One more step, its layers 0 and 63's calls kept and held against the
+    # plain version, then the same step with the plain attention.
+    calls, seen = [], [0]
+
+    def keep(q, k_pool, v_pool, tables_, lengths_):
+        out = paged_attention(q, k_pool, v_pool, tables_, lengths_)
+        if seen[0] in (0, cfg.n_layers - 1):
+            li = seen[0]
+            calls.append((q.clone(), pool[:, li], tables_, lengths_.clone(), {}, out.clone()))
+        seen[0] += 1
+        return out
+
+    with torch.no_grad():
+        got, _, _ = paged_cell.body_local(cfg, weights, pool, tables, lengths, tokens, block_size=bs,
+                                          attention=keep)
+        # Before the plain step rewrites layers 1-63's new slots (from its
+        # own, slightly different, activations).
+        row = attention_row(rate, calls, cfg.n_heads, "qwen paged_attention")
+        want, _, _ = paged_cell.body_local(cfg, weights, pool, tables, lengths, tokens, block_size=bs,
+                                           attention=paged_attention_ref)
+    gap = ((got - want).abs().max() / want.abs().max()).item()
+    require(math.isfinite(gap) and gap <= PAGED_CELL_TOL,
+            f"paged cell: logits with the kernel within {PAGED_CELL_TOL} of the largest |logit| of the "
+            f"plain attention's ({gap})")
+    row["launches"] = launches["paged_attention"]
+    del calls, got, want
+    # The one-card step traced with the card's routing, priced on the card.
+    t = time.perf_counter()
+    costs = traced_costs(cell.step, cell.args, None, None, mode="decode")
+    trace_s = time.perf_counter() - t
+    rf = analyze_traced(costs, 1, cfg, "decode", batch=n, seq=c["seq"])
+    median = float(np.median(walls))
+    report = {
+        "arch": c["arch"], "rows": n, "group": cfg.n_heads // cfg.n_kv_heads, "prompt": c["prompt"],
+        "block": bs, "pool_blocks": cell.nb_local, "pages_in_use": shared + n, "steps": c["steps"],
+        "init_s": init_s, "prefill_s": prefill_s, "step_ms_median": median, "step_ms": walls,
+        "logit_gap": gap, "paged_attention": row,
+        "traced": {"compute_ms": rf.compute_s * 1e3, "memory_ms": rf.memory_s * 1e3,
+                   "flops": costs["flops"], "bytes": costs["bytes"], "trace_s": trace_s,
+                   "wall_over_memory": median / (rf.memory_s * 1e3)},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    del weights, pool, tables, lengths, tokens, step_logits, last
+    if owned:
+        torch.distributed.destroy_process_group()  # make_host_mesh's one rank
+    settle()
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"paged_cell": report}), flush=True)
+    for r in rows:
+        if r["name"] == "paged_attention":
+            r["qwen_g5"] = {k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+
+
 def settle() -> None:
     """Between phases: collect Python's cyclic garbage, then return the
     cached blocks, so a phase starts with only what is still referenced.
@@ -3979,34 +4136,51 @@ def main() -> int:
     print(f"small run N={small_n} T={small_t}: card agrees with the CPU path "
           f"(log_evidence {small['cuda'][1]!r} vs {small['cpu'][1]!r})", flush=True)
 
+    walls = {"1-4": time.perf_counter() - t0}
+    mark = [time.perf_counter()]
+
+    def wall(phase: str) -> None:
+        """The phase's wall, settle() included, printed as it ends."""
+        now = time.perf_counter()
+        walls[phase] = now - mark[0]
+        mark[0] = now
+        print(f"phase {phase}: {walls[phase]:.1f} s", flush=True)
+
     # -- 10. the store's delta COW at the filter's scale -------------------
     delta_row = delta_store_phase(dev, rate, ys)
     settle()
+    wall("10")
 
     # -- 11. the registry's other kernels at full width ---------------------
     registry_rows = registry_phase(dev, rate, final_logw)
     settle()
+    wall("11")
 
     # -- 6-9. serving starcoder2-3b at full width -------------------------
     rows += serve_phases(dev, rate)
     settle()
+    wall("6-9")
 
     # -- 12. SMC decoding through the scheduler at full width --------------
     smc = smc_decode_phase(dev, rows)
     settle()
+    wall("12")
 
     # -- 13. an SMC fleet of two replicas against one, and its replay -------
     fleet_phase(dev, rows, *smc)
     settle()
+    wall("13")
 
     # -- 17. the sharded store, on phase 12's weights for its decoder --------
     sharded_phase(dev, rate, rows, ys, *smc[:2])
     del smc
     settle()
+    wall("17")
 
     # -- 14. the paper's five programs at the paper's N and T (PCFG's cut) --
     programs_phase(dev, rows)
     settle()
+    wall("14")
 
     # -- 15. the moe and audio families at full width ---------------------
     family_phase(dev, rate, rows)
@@ -4014,18 +4188,25 @@ def main() -> int:
     rows.insert(1, delta_row)
     rows[5:5] = registry_rows[:1]
     rows += registry_rows[1:]
+    wall("15")
 
     # -- 16. the dense-cache families at full width -------------------------
     dense_cache_phase(dev, rate, rows)
     settle()
+    wall("16")
 
     # -- 18. training: the backward kernels, Trainer, make_train_step -------
     train_phase(dev, rate, rows)
     settle()
+    wall("18")
+
+    # -- 19. the paged cell at qwen2.5-32b's full width ----------------------
+    paged_cell_phase(dev, rate, rows)
+    wall("19")
 
     # -- 5. where a generation's time goes (a traced LAZY_SR run), last: a
     # trace of ~4e5 kernels costs later traces some of their records.
-    prof_t = steps
+    prof_t = PROFILE_T
     cfg = FilterConfig(n_particles=n, n_steps=prof_t, mode=CopyMode.LAZY_SR)
     pf = ParticleFilter(ssm, cfg, device=dev)
     torch.cuda.synchronize()
@@ -4034,12 +4215,15 @@ def main() -> int:
         t = time.perf_counter()
         pf.run(rnd.generator(SEED, dev), None, ys[:prof_t])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        wall_s = time.perf_counter() - t
     traced = dispatch.launch_counts()["cow_write"] - before
     print(json.dumps({"profile": {
         "mode": "lazy_sr", "N": n, "T": prof_t,
-        **profile_summary(prof, wall * 1e3, prof_t, "generation", "cow_write_kernel", traced),
+        **profile_summary(prof, wall_s * 1e3, prof_t, "generation", "cow_write_kernel", traced),
     }}), flush=True)
+    wall("5")
+    walls["script"] = time.perf_counter() - t0
+    print(json.dumps({"phase_walls": walls}), flush=True)
 
     floor_ms = registry_rows[0]["launch_floor_ms"]
     for row in rows:

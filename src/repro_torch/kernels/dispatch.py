@@ -11,6 +11,11 @@ through kernels of their own.  The JAX package picks a path through
   or raises — there is no ``try`` that falls back to the plain version.
 * CPU tensors go to the plain PyTorch version in the op's ``ref.py``.
 * Anything else (``meta``, another accelerator, mixed devices) raises.
+* Inside :func:`card_trace`, *fake* CPU tensors take the CUDA route: a
+  ``FakeTensorMode`` trace of the card's program on a host without a
+  card (the dry run's) reaches each kernel's custom op, whose fake
+  implementation gives the shapes; nothing runs.  (Fake CUDA tensors
+  would do, but this build cannot index them from Python.)
 
 Each wrapper carries a plain integer ``launches`` that it bumps where it
 launches its kernel and nowhere else, so a run can show that its main
@@ -19,13 +24,16 @@ path went through the kernels (:func:`launch_counts`).
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import threading
 from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
 __all__ = [
     "KNOWN_OPS",
+    "card_trace",
     "get_op",
     "route",
     "resolve_device",
@@ -68,6 +76,20 @@ def get_op(name: str) -> Callable:
     return getattr(importlib.import_module(module), attr)
 
 
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def card_trace():
+    """Route fake CPU tensors as the card's (see the module docstring)."""
+    prev = getattr(_TLS, "card", False)
+    _TLS.card = True
+    try:
+        yield
+    finally:
+        _TLS.card = prev
+
+
 def route(*tensors: torch.Tensor) -> str:
     """``"cuda"`` or ``"cpu"``: where an op on ``tensors`` runs.
 
@@ -79,13 +101,21 @@ def route(*tensors: torch.Tensor) -> str:
     kind = kinds.pop()
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"no kernel route for device type {kind!r}")
+    if kind == "cpu" and getattr(_TLS, "card", False):
+        from torch._subclasses.fake_tensor import is_fake
+
+        if all(is_fake(t) for t in tensors):
+            return "cuda"
     return kind
 
 
-def resolve_device(device: torch.device | str) -> torch.device:
+def resolve_device(device: torch.device | str, *, allow_meta: bool = False) -> torch.device:
     """Validate an entry point's ``device``.  CUDA without a GPU raises:
-    the port never carries on quietly on the CPU."""
+    the port never carries on quietly on the CPU.  ``allow_meta`` lets a
+    shape-only constructor (``abstract_cache``) pass ``meta``."""
     dev = torch.device(device)
+    if allow_meta and dev.type == "meta":
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "

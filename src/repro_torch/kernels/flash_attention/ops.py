@@ -30,7 +30,10 @@ import math
 
 import torch
 
+from typing import Optional
+
 from repro_torch.kernels import _build
+from repro_torch.kernels._library import replicate_all, shardings
 from repro_torch.kernels.dispatch import check, require_aligned, route
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
@@ -153,16 +156,15 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, window, scale):
         keep = tensor_core_route(q.dtype, q.shape[-1]) and any(ctx.needs_input_grad[:3])
-        lse = _lse_buffer(q) if keep else None
-        out = _forward(q, k, v, window, scale, lse)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, window, scale, keep)
+        ctx.save_for_backward(q, k, v, out, lse if keep else None)
         ctx.window, ctx.scale = window, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, window=ctx.window, scale=ctx.scale, lse=lse)
+        dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, dout, lse, ctx.window, ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -236,3 +238,111 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the custom ops (kernels/_library.py)
+# ---------------------------------------------------------------------------
+
+
+def visible_pairs(sq: int, sk: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) attention of ``sq`` queries
+    over ``sk`` keys computes, query i at position ``sk - sq + i``: the sum
+    of ``clamp(sk - sq + 1 + i, 0, w)`` in closed form."""
+    w = window if window > 0 else max(sk, 1)
+
+    def upto(n: int) -> int:  # sum of min(x, w) for x in 1..n
+        if n <= 0:
+            return 0
+        return n * (n + 1) // 2 if n <= w else w * (w + 1) // 2 + (n - w) * w
+
+    lo = sk - sq + 1
+    return upto(lo + sq - 1) - upto(lo - 1)
+
+
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, scale: float,
+              with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel: ``(out, lse)``; ``lse`` is the row log-sum-exp
+    for the tensor-core backward when ``with_lse``, else empty."""
+    lse = _lse_buffer(q) if with_lse else None
+    return _forward(q, k, v, window, scale, lse), (_no_lse(q) if lse is None else lse)
+
+
+@_flash_op.register_kernel("cpu")
+def _(q, k, v, window, scale, with_lse):
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return flash_attention_ref(qt, kt, vt, scale=scale, window=window).transpose(1, 2).contiguous(), _no_lse(q)
+
+
+@_flash_op.register_fake
+def _(q, k, v, window, scale, with_lse):
+    return torch.empty_like(q), (_lse_buffer(q) if with_lse else _no_lse(q))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(), device_types="cuda")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+                  lse: Optional[torch.Tensor], window: int, scale: float
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel, :func:`flash_attention_bwd`."""
+    return flash_attention_bwd(q, k, v, out, dout, window=window, scale=scale, lse=lse)
+
+
+@_flash_bwd_op.register_kernel("cpu")
+def _(q, k, v, out, dout, lse, window, scale):
+    return flash_attention_bwd_ref(q, k, v, dout, scale=scale, window=window)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, out, dout, lse, window, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_flops(q_shape, k_shape, window: int, per_pair: int) -> int:
+    b, sq, h, d = q_shape
+    return per_pair * d * b * h * visible_pairs(sq, k_shape[1], window)
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q_shape, k_shape, v_shape, window, scale, with_lse, *args, out_shape=None, **kwargs):
+        return _flash_flops(q_shape, k_shape, window, 4)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _(q_shape, k_shape, v_shape, out_shape_, dout_shape, lse_shape, window, scale, *args,
+          out_shape=None, **kwargs):
+        return _flash_flops(q_shape, k_shape, window, 10)
+
+
+_register_flops()
+
+
+@shardings(torch.ops.repro_torch.flash_attention.default)
+def _(q, k, v, window, scale, with_lse):
+    from torch.distributed.tensor import Replicate, Shard
+
+    lse = (lambda p: p) if with_lse else (lambda p: Replicate())
+    args = [None, None, None]
+    return [
+        ([Shard(0), lse(Shard(0))], [Shard(0)] * 3 + args),
+        ([Shard(2), lse(Shard(1))], [Shard(2)] * 3 + args),
+        replicate_all(2, 6, (True, True, True, False, False, False)),
+    ]
+
+
+@shardings(torch.ops.repro_torch.flash_attention_bwd.default)
+def _(q, k, v, out, dout, lse, window, scale):
+    from torch.distributed.tensor import Shard
+
+    has = lse is not None
+    return [
+        ([Shard(0)] * 3, [Shard(0)] * 5 + [Shard(0) if has else None, None, None]),
+        ([Shard(2)] * 3, [Shard(2)] * 5 + [Shard(1) if has else None, None, None]),
+        replicate_all(3, 8, (True,) * 5 + (has, False, False)),
+    ]

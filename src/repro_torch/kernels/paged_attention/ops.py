@@ -17,6 +17,14 @@ The kernel splits each row's pages into runs (:func:`split_plan`), one
 CTA per run and KV head, and a second kernel merges a row's runs in
 order.  On the CUDA route the wrapper raises on what the kernel does not
 take (:func:`check_kernel_inputs`); the plain version takes any shape.
+
+:func:`paged_attention` goes through the custom ops
+``repro_torch::paged_attention`` and ``repro_torch::paged_attention_delta``
+(:mod:`repro_torch.kernels._library`), whose CUDA implementations are the
+two wrappers: a ``FakeTensorMode`` or DTensor trace holds each call as one
+node with its FLOPs (``4 d`` a slot the tables can hold, per query head:
+the shapes do not say how many are valid) and shards it over the heads,
+or over the rows where the pools are whole on each rank.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._library import replicate_all, shardings
 from repro_torch.kernels.dispatch import check, route
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -84,8 +93,8 @@ def paged_attention(
     Returns [B, H, d] in q's dtype; a row with no valid slot is 0.
     """
     if parent is None:
-        return paged_attention_kernel(q, k_pool, v_pool, tables, lengths)
-    return paged_attention_delta_kernel(q, k_pool, v_pool, tables, lengths, parent, dirty)
+        return torch.ops.repro_torch.paged_attention(q, k_pool, v_pool, tables, lengths)
+    return torch.ops.repro_torch.paged_attention_delta(q, k_pool, v_pool, tables, lengths, parent, dirty)
 
 
 def _check_pools(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor) -> None:
@@ -188,3 +197,75 @@ def paged_attention_delta_kernel(q, k_pool, v_pool, tables, lengths, parent, dir
 
 paged_attention_kernel.launches = 0
 paged_attention_delta_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the custom ops (kernels/_library.py)
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::paged_attention", mutates_args=(), device_types=("cuda", "cpu"))
+def _paged_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, tables: torch.Tensor,
+              lengths: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_attention_kernel`: its checks, then the kernel (CUDA) or
+    :func:`paged_attention_ref` (CPU)."""
+    return paged_attention_kernel(q, k_pool, v_pool, tables, lengths)
+
+
+@_paged_op.register_fake
+def _(q, k_pool, v_pool, tables, lengths):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::paged_attention_delta", mutates_args=(), device_types=("cuda", "cpu"))
+def _paged_delta_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, tables: torch.Tensor,
+                    lengths: torch.Tensor, parent: torch.Tensor, dirty: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_attention_delta_kernel`, as :func:`_paged_op`."""
+    return paged_attention_delta_kernel(q, k_pool, v_pool, tables, lengths, parent, dirty)
+
+
+@_paged_delta_op.register_fake
+def _(q, k_pool, v_pool, tables, lengths, parent, dirty):
+    return torch.empty_like(q)
+
+
+def table_flops(q_shape, k_shape, t_shape) -> int:
+    """``4 d`` FLOPs a slot the tables can hold, per row and query head."""
+    b, h, d = q_shape
+    return 4 * d * b * h * t_shape[1] * k_shape[1]
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.paged_attention)
+    def _(q_shape, k_shape, v_shape, t_shape, l_shape, *args, out_shape=None, **kwargs):
+        return table_flops(q_shape, k_shape, t_shape)
+
+    @register_flop_formula(torch.ops.repro_torch.paged_attention_delta)
+    def _(q_shape, k_shape, v_shape, t_shape, l_shape, *args, out_shape=None, **kwargs):
+        return table_flops(q_shape, k_shape, t_shape)
+
+
+_register_flops()
+
+
+def _paged_shardings(n_extra: int):
+    from torch.distributed.tensor import Replicate, Shard
+
+    r, extra = Replicate(), [Replicate()] * n_extra
+    return [
+        ([Shard(1)], [Shard(1), Shard(2), Shard(2), r, r] + extra),
+        ([Shard(0)], [Shard(0), r, r, Shard(0), Shard(0)] + extra),
+        replicate_all(1, 5 + n_extra, (True,) * (5 + n_extra)),
+    ]
+
+
+@shardings(torch.ops.repro_torch.paged_attention.default)
+def _(q, k_pool, v_pool, tables, lengths):
+    return _paged_shardings(0)
+
+
+@shardings(torch.ops.repro_torch.paged_attention_delta.default)
+def _(q, k_pool, v_pool, tables, lengths, parent, dirty):
+    return _paged_shardings(2)

@@ -23,6 +23,12 @@ gradient of the final state, where one is given, starts the backward
 recurrence over the chunks, and the gradients of the padded tail are
 dropped.  On CPU tensors autograd differentiates the plain
 version, as the reference's ``jax.grad`` differentiates ``ssd_chunked``.
+
+The ``Function`` reaches both kernels through the custom ops
+``repro_torch::ssd_scan`` and ``repro_torch::ssd_scan_bwd``
+(:mod:`repro_torch.kernels._library`): a ``FakeTensorMode`` or DTensor
+trace holds each call as one node with its FLOPs (:func:`scan_flops`,
+2.5 times that backward) and shards it over the batch or the SSM heads.
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ import math
 
 import torch
 
+from typing import Optional
+
 from repro_torch.kernels import _build
+from repro_torch.kernels._library import replicate_all, shardings
 from repro_torch.kernels.dispatch import check, require_aligned, route
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref
 
@@ -173,14 +182,14 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, a, bmat, cmat, chunk):
-        out = _forward(x, dt, a, bmat, cmat, chunk)
+        out = torch.ops.repro_torch.ssd_scan(x, dt, a, bmat, cmat, chunk)
         ctx.save_for_backward(x, dt, a, bmat, cmat)
         ctx.chunk = chunk
         return out
 
     @staticmethod
     def backward(ctx, dy, dh):
-        grads = ssd_scan_bwd(*ctx.saved_tensors, dy, dh, chunk=ctx.chunk)
+        grads = torch.ops.repro_torch.ssd_scan_bwd(*ctx.saved_tensors, dy, dh, ctx.chunk)
         return (*grads, None)
 
 
@@ -320,3 +329,96 @@ def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh=None, *, chunk: int = 64):
 
 
 ssd_scan_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the custom ops (kernels/_library.py)
+# ---------------------------------------------------------------------------
+
+
+def scan_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """The scan's FLOPs at chunk ``q = min(chunk, s)``: per chunk and head,
+    the causal ``C Bᵀ`` and its product with x (``q(q+1)/2 (n + p)``
+    multiply-adds) and the state's in and out (``2 q p n``)."""
+    q = min(chunk, s) or 1
+    return 2 * b * h * (s // q) * (q * (q + 1) // 2 * (n + p) + 2 * q * p * n)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(), device_types="cuda")
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+            chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel: ``(y, h_final)``."""
+    return _forward(x, dt, a, bmat, cmat, chunk)
+
+
+@_ssd_op.register_kernel("cpu")
+def _(x, dt, a, bmat, cmat, chunk):
+    return ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk)
+
+
+@_ssd_op.register_fake
+def _(x, dt, a, bmat, cmat, chunk):
+    b, s, h, p = x.shape
+    return (x.new_empty((b, s, h, p), dtype=torch.float32),
+            x.new_empty((b, h, p, bmat.shape[-1]), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=(), device_types="cuda")
+def _ssd_bwd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                dy: torch.Tensor, dh: Optional[torch.Tensor], chunk: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel, :func:`ssd_scan_bwd`."""
+    return ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dh, chunk=chunk)
+
+
+@_ssd_bwd_op.register_kernel("cpu")
+def _(x, dt, a, bmat, cmat, dy, dh, chunk):
+    return ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dh, chunk=chunk)
+
+
+@_ssd_bwd_op.register_fake
+def _(x, dt, a, bmat, cmat, dy, dh, chunk):
+    f32 = torch.float32
+    return (torch.empty_like(x), dt.new_empty(dt.shape, dtype=f32), a.new_empty(a.shape, dtype=f32),
+            torch.empty_like(bmat), torch.empty_like(cmat))
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan)
+    def _(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, *args, out_shape=None, **kwargs):
+        return scan_flops(*x_shape, b_shape[-1], chunk)
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+    def _(x_shape, dt_shape, a_shape, b_shape, c_shape, dy_shape, dh_shape, chunk, *args,
+          out_shape=None, **kwargs):
+        return int(2.5 * scan_flops(*x_shape, b_shape[-1], chunk))
+
+
+_register_flops()
+
+
+@shardings(torch.ops.repro_torch.ssd_scan.default)
+def _(x, dt, a, bmat, cmat, chunk):
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [
+        ([Shard(0), Shard(0)], [Shard(0), Shard(0), Replicate(), Shard(0), Shard(0), None]),
+        ([Shard(2), Shard(1)], [Shard(2), Shard(2), Shard(0), Replicate(), Replicate(), None]),
+        replicate_all(2, 6, (True,) * 5 + (False,)),
+    ]
+
+
+@shardings(torch.ops.repro_torch.ssd_scan_bwd.default)
+def _(x, dt, a, bmat, cmat, dy, dh, chunk):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    has = dh is not None
+    return [
+        ([Shard(0), Shard(0), Partial(), Shard(0), Shard(0)],
+         [Shard(0), Shard(0), Replicate(), Shard(0), Shard(0), Shard(0), Shard(0) if has else None, None]),
+        ([Shard(2), Shard(2), Shard(0), Partial(), Partial()],
+         [Shard(2), Shard(2), Shard(0), Replicate(), Replicate(), Shard(2), Shard(1) if has else None, None]),
+        replicate_all(5, 8, (True,) * 6 + (has, False)),
+    ]

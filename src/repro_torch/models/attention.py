@@ -13,7 +13,9 @@ PyTorch on both, as the reference computes them outside any kernel.
 Single-token decode against the paged cache lives in
 :mod:`repro_torch.serving.engine` and goes through the paged-attention
 kernel.  The reference's sharding hooks (``constrain``,
-``gather_weight``) are the identity on one device and are dropped.
+``gather_weight``, the train-mode repeat of KV heads that do not divide
+the model axis) sit where the reference has them; outside
+``activation_sharding`` they are the identity.
 """
 
 from __future__ import annotations
@@ -23,11 +25,14 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import constrain, einsum, gather_weight, sharding_mode, tp_size
+from repro_torch.kernels.dispatch import route
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, apply_rope
 
 NEG_INF = -1e30
+KV_AXES = ("act_batch", "act_kv_seq", "act_kv_heads", None)
 
 __all__ = [
     "init_attention",
@@ -43,15 +48,15 @@ __all__ = [
 
 def init_attention(b, cfg: ModelConfig, cross: bool = False) -> None:
     d, hd = cfg.d_model, cfg.hd
-    b.param("wq", (d, cfg.n_heads, hd))
-    b.param("wk", (d, cfg.n_kv_heads, hd))
-    b.param("wv", (d, cfg.n_kv_heads, hd))
+    b.param("wq", (d, cfg.n_heads, hd), ("embed", "heads", "head_dim"))
+    b.param("wk", (d, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim"))
+    b.param("wv", (d, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim"))
     # Fan-in n_heads, as the reference's (H, hd, d) layout gives it.
-    b.param("wo", (cfg.n_heads, hd, d))
+    b.param("wo", (cfg.n_heads, hd, d), ("heads", "head_dim", "embed"))
     if cfg.qkv_bias and not cross:
-        b.param("bq", (cfg.n_heads, hd), init="zeros")
-        b.param("bk", (cfg.n_kv_heads, hd), init="zeros")
-        b.param("bv", (cfg.n_kv_heads, hd), init="zeros")
+        b.param("bq", (cfg.n_heads, hd), ("heads", "head_dim"), init="zeros")
+        b.param("bk", (cfg.n_kv_heads, hd), ("kv_heads", "head_dim"), init="zeros")
+        b.param("bv", (cfg.n_kv_heads, hd), ("kv_heads", "head_dim"), init="zeros")
 
 
 def qkv_proj(
@@ -59,9 +64,12 @@ def qkv_proj(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> q [B, S, H, hd], k and v [B, S, KVH, hd]."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    wq = gather_weight(params["wq"].to(dt), (None, "act_heads", "act_head_dim"))
+    wk = gather_weight(params["wk"].to(dt), (None, "act_kv_heads", "act_head_dim"))
+    wv = gather_weight(params["wv"].to(dt), (None, "act_kv_heads", "act_head_dim"))
+    q = einsum("bsd,dhk->bshk", x, wq)
+    k = einsum("bsd,dhk->bshk", x, wk)
+    v = einsum("bsd,dhk->bshk", x, wv)
     if "bq" in params:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -71,21 +79,35 @@ def qkv_proj(
 
 def out_proj(params: Params, attn_out: torch.Tensor) -> torch.Tensor:
     """[B, S, H, hd] -> [B, S, D]."""
-    return torch.einsum("bshk,hkd->bsd", attn_out, params["wo"].to(attn_out.dtype))
+    wo = gather_weight(params["wo"].to(attn_out.dtype), ("act_heads", "act_head_dim", None))
+    return einsum("bshk,hkd->bsd", attn_out, wo)
+
+
+def _group(q: torch.Tensor, kvh: int) -> torch.Tensor:
+    """q [B,Sq,H,hd] -> [B,Sq,KVH,G,hd].  A DTensor q whose heads are
+    sharded over more pieces than the KV heads divide into is gathered on
+    those mesh dimensions first (a GQA group cannot straddle ranks)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    b, sq, h, hd = q.shape
+    if isinstance(q, DTensor):
+        pl = tuple(Replicate() if p == Shard(2) and kvh % q.device_mesh.size(i) else p
+                   for i, p in enumerate(q.placements))
+        if pl != tuple(q.placements):
+            q = q.redistribute(q.device_mesh, pl)
+    return q.reshape(b, sq, kvh, h // kvh, hd)
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """GQA scores: q [B,Sq,H,hd], k [B,Sk,KVH,hd] -> [B,KVH,G,Sq,Sk]."""
-    b, sq, h, hd = q.shape
-    kvh = k.shape[2]
-    qg = q.reshape(b, sq, kvh, h // kvh, hd)
-    return torch.einsum("bqhgk,bshk->bhgqs", qg, k) / math.sqrt(hd)
+    qg = _group(q, k.shape[2])
+    return einsum("bqhgk,bshk->bhgqs", qg, k) / math.sqrt(q.shape[-1])
 
 
 def _grouped_out(scores: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """[B,KVH,G,Sq,Sk] x [B,Sk,KVH,hd] -> [B,Sq,H,hd]."""
     b, kvh, g, sq, sk = scores.shape
-    out = torch.einsum("bhgqs,bshk->bqhgk", scores, v)
+    out = einsum("bhgqs,bshk->bqhgk", scores, v)
     return out.reshape(b, sq, kvh * g, v.shape[-1])
 
 
@@ -124,6 +146,27 @@ def attention_chunked(
     return torch.cat(outs, dim=1)
 
 
+def layout_kv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's layout of a training attention's q, k, v over the
+    mesh (``attention.py:116-135`` of the JAX package): in train mode,
+    KV heads that do not divide the model axis while the query heads do
+    are repeated to the full head count, so every attention tensor is
+    head-sharded; otherwise K and V take ``KV_AXES`` (heads, or the
+    sequence when the heads do not divide).  The identity outside
+    ``activation_sharding``."""
+    tp = tp_size()
+    h, kvh = q.shape[2], k.shape[2]
+    if tp > 1 and sharding_mode() == "train" and h % tp == 0 and kvh % tp != 0:
+        g = h // kvh
+        names = ("act_batch", None, "act_heads", None)
+        k = constrain(k.repeat_interleave(g, dim=2), names)
+        v = constrain(v.repeat_interleave(g, dim=2), names)
+        return constrain(q, names), k, v
+    return q, constrain(k, KV_AXES), constrain(v, KV_AXES)
+
+
 def attention_train(
     params: Params,
     x: torch.Tensor,
@@ -145,10 +188,11 @@ def attention_train(
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if x.is_cuda:
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=window)
+    qa, ka, va = layout_kv(q, k, v)
+    if route(x) == "cuda":
+        out = flash_attention(qa.contiguous(), ka.contiguous(), va.contiguous(), window=window)
     else:
-        out = attention_chunked(q, k, v, positions, positions, window=window)
+        out = attention_chunked(qa, ka, va, positions, positions, window=window)
     return out_proj(params, out), k, v
 
 
@@ -158,9 +202,9 @@ def cross_attention(
     """Non-causal attention of x [B, S, D] to precomputed features
     [B, n, D] (the VLM's image tokens)."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", kv_feats, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", kv_feats, params["wv"].to(dt))
+    q = einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = einsum("bsd,dhk->bshk", kv_feats, params["wk"].to(dt))
+    v = einsum("bsd,dhk->bshk", kv_feats, params["wv"].to(dt))
     probs = torch.softmax(_grouped_scores(q, k).float(), dim=-1).to(dt)
     return out_proj(params, _grouped_out(probs, v))
 
@@ -187,6 +231,8 @@ def attention_decode(
         pos = position[:, None]  # [B, 1]
         q = apply_rope(q, pos, cfg.rope_theta)
         k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    k_cache = constrain(k_cache, KV_AXES)
+    v_cache = constrain(v_cache, KV_AXES)
     b, g = q.shape[0], cfg.n_heads // cfg.n_kv_heads
     k_pos = torch.arange(k_cache.shape[1], dtype=torch.int32, device=x.device)[None, :]
     scores = _grouped_scores(q, k_cache).float()  # [B, KVH, G, 1, S]
@@ -194,8 +240,8 @@ def attention_decode(
     if window > 0:
         ok = ok & (position[:, None] - k_pos < window)
     scores = torch.where(ok[:, None, None, None, :], scores, NEG_INF)
-    self_score = torch.einsum(
-        "bqhgk,bshk->bhgqs", q.reshape(b, 1, cfg.n_kv_heads, g, cfg.hd), k_new
+    self_score = einsum(
+        "bqhgk,bshk->bhgqs", _group(q, cfg.n_kv_heads), k_new
     ).float() / math.sqrt(cfg.hd)  # [B, KVH, G, 1, 1]
     m = torch.maximum(scores.amax(dim=-1, keepdim=True), self_score)
     p_cache = torch.exp(scores - m)

@@ -7,9 +7,13 @@ draws from an explicit ``torch.Generator`` by the reference's law
 ``1/sqrt(shape[0])`` (or the given ``scale``), norm scales zero, the
 SSM's skip gains one.  The two
 frameworks give different numbers from one seed, so tests start both
-sides from the same weights through :mod:`repro_torch.convert`.  The
-logical-axis names of the reference (its sharding layer) are not kept:
-the port runs on one device.
+sides from the same weights through :mod:`repro_torch.convert`.  Each
+parameter carries the reference's *logical axis names* per dimension
+("embed", "heads", "mlp", "vocab", "experts", "layers", ...), recorded
+in a tree beside the parameters; :mod:`repro_torch.distributed.sharding`
+maps them onto mesh axes, as the reference's sharding layer does.  The
+model code calls that module's ``gather_weight`` on each weight it
+reads, the identity outside ``activation_sharding``.
 """
 
 from __future__ import annotations
@@ -19,10 +23,15 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import gather_weight, matmul, sharded_embed
 
 Params = Dict[str, Any]
+Axes = Dict[str, Any]
 
 __all__ = [
+    "Axes",
     "Params",
     "ParamBuilder",
     "stack_layer_params",
@@ -55,12 +64,14 @@ def _set(tree: Dict[str, Any], path: str, value: Any) -> None:
 
 
 class ParamBuilder:
-    """Draws parameters during init.
+    """Draws parameters during init and records their logical axes.
 
     ``layers > 0`` gives every leaf a leading layer axis of that size
-    (the stacked ``blocks`` tree that the layer loop indexes); the law is
-    that of the per-layer shape.  With ``generator=None`` only the
-    shapes are recorded (``specs``), nothing is allocated.  ``finish``,
+    (the stacked ``blocks`` tree that the layer loop indexes) and its
+    axes a leading ``"layers"``; the law is that of the per-layer shape.
+    With ``generator=None`` nothing is drawn or allocated: the leaves are
+    ``meta`` tensors of the parameter dtype, and ``specs`` holds each
+    path's shape (the reference's ``abstract=True``).  ``finish``,
     if given, maps each leaf as soon as it is drawn (``finish(path,
     value)``), before the next one is: a cast there keeps one leaf in
     the parameter dtype at a time.
@@ -81,20 +92,26 @@ class ParamBuilder:
         self.layers = layers
         self.finish = finish
         self.params: Params = {}
+        self.axes: Axes = {}
         self.specs: Dict[str, Tuple[int, ...]] = {}
 
     def param(
         self,
         path: str,
         shape: Sequence[int],
+        axes: Sequence[Optional[str]],
         init: str = "normal",
         scale: float | None = None,
-    ) -> Optional[torch.Tensor]:
+    ) -> torch.Tensor:
         shape = tuple(shape)
+        assert len(shape) == len(axes), (path, shape, axes)
         full = ((self.layers,) if self.layers else ()) + shape
         self.specs[path] = full
+        _set(self.axes, path, (("layers",) if self.layers else ()) + tuple(axes))
         if self.gen is None:
-            return None
+            value = torch.empty(full, dtype=self.dtype, device="meta")
+            _set(self.params, path, value)
+            return value
         if init == "zeros":
             value = torch.zeros(full, dtype=self.dtype, device=self.device)
         elif init == "ones":
@@ -120,7 +137,7 @@ class ScopedBuilder:
         self.base = base
         self.prefix = prefix
 
-    def param(self, path: str, *args, **kwargs) -> Optional[torch.Tensor]:
+    def param(self, path: str, *args, **kwargs) -> torch.Tensor:
         return self.base.param(f"{self.prefix}/{path}", *args, **kwargs)
 
     def scope(self, prefix: str) -> "ScopedBuilder":
@@ -138,7 +155,8 @@ def stack_layer_params(
 ) -> ParamBuilder:
     """Initialise a layer stack: every leaf gets a leading layer axis of
     size ``n_layers`` (the reference vmaps one init over split keys; the
-    law per layer is the same).  Returns the builder (``.params``,
+    law per layer is the same) and every leaf's axes a leading
+    ``"layers"``.  Returns the builder (``.params``, ``.axes``,
     ``.specs``)."""
     b = ParamBuilder(generator, param_dtype, device=device, layers=n_layers, finish=finish)
     init_fn(b)
@@ -160,7 +178,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
 
 
 def init_rms_norm(b, path: str, dim: int) -> None:
-    b.param(f"{path}/scale", (dim,), init="zeros")
+    b.param(f"{path}/scale", (dim,), ("embed",), init="zeros")
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -175,32 +193,35 @@ def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 def init_mlp(b, path: str, d_model: int, d_ff: int, gated: bool = True) -> None:
     s = b.scope(path)
     if gated:
-        s.param("w_gate", (d_model, d_ff))
-    s.param("w_up", (d_model, d_ff))
-    s.param("w_down", (d_ff, d_model))
+        s.param("w_gate", (d_model, d_ff), ("embed", "mlp"))
+    s.param("w_up", (d_model, d_ff), ("embed", "mlp"))
+    s.param("w_down", (d_ff, d_model), ("mlp", "embed"))
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    up = x @ params["w_up"].to(x.dtype)
+    up = matmul(x, gather_weight(params["w_up"].to(x.dtype), (None, "act_mlp")))
     if "w_gate" in params:
-        hidden = act_fn(act)(x @ params["w_gate"].to(x.dtype)) * up
+        w_gate = gather_weight(params["w_gate"].to(x.dtype), (None, "act_mlp"))
+        hidden = act_fn(act)(matmul(x, w_gate)) * up
     else:
         hidden = act_fn(act)(up)
-    return hidden @ params["w_down"].to(x.dtype)
+    return matmul(hidden, gather_weight(params["w_down"].to(x.dtype), ("act_mlp", None)))
 
 
 def init_embedding(b, path: str, vocab: int, d_model: int) -> None:
-    b.param(path, (vocab, d_model), scale=1.0)
+    b.param(path, (vocab, d_model), ("vocab", "embed"), scale=1.0)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     # Gather then cast: the same values as the reference's cast-then-gather.
+    if isinstance(table, DTensor):
+        return sharded_embed(table, tokens).to(dtype)
     return table[tokens.long()].to(dtype)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits = x @ table^T, in float32 against the float32 table."""
-    return x.float() @ table.float().T
+    return matmul(x.float(), table.float().T)
 
 
 # ---------------------------------------------------------------------------

@@ -49,12 +49,16 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import assign, constrain, take_last, write_prefix, write_token
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    Axes,
     ParamBuilder,
     embed,
     init_embedding,
@@ -114,11 +118,20 @@ class LanguageModel:
     def param_specs(self) -> Dict[str, Tuple[int, ...]]:
         """Each leaf's path (``"blocks/attn/wq"``) and shape, with nothing
         allocated."""
-        return self._build(None, torch.device("cpu"), None)[1]
+        return self._build(None, torch.device("meta"), None)[1]
+
+    def abstract_init(self) -> Tuple[Params, Axes]:
+        """Shape-only parameters (``meta`` tensors of the parameter dtype)
+        and their logical axes, the reference's ``abstract_init``
+        (``model.py:121`` of the JAX package): nothing is drawn or
+        allocated.  The stacked ``blocks`` leaves carry a leading
+        ``"layers"`` axis."""
+        params, _, axes = self._build(None, torch.device("meta"), None)
+        return params, axes
 
     def _build(
         self, generator: Optional[torch.Generator], dev: torch.device, finish: Optional[Finish]
-    ) -> Tuple[Params, Dict[str, Tuple[int, ...]]]:
+    ) -> Tuple[Params, Dict[str, Tuple[int, ...]], Axes]:
         cfg = self.cfg
 
         def scoped(prefix):
@@ -130,8 +143,8 @@ class LanguageModel:
         init_embedding(b, "embed", cfg.padded_vocab, cfg.d_model)
         init_rms_norm(b, "final_norm", cfg.d_model)
         if not cfg.tie_embeddings:
-            b.param("unembed", (cfg.padded_vocab, cfg.d_model))
-        params, specs = dict(b.params), dict(b.specs)
+            b.param("unembed", (cfg.padded_vocab, cfg.d_model), ("vocab", "embed"))
+        params, specs, axes = dict(b.params), dict(b.specs), dict(b.axes)
         parts = [("blocks", stack_layer_params(
             self._init_block, generator, self._n_scan, cfg.param_dtype, device=dev,
             finish=scoped("blocks"),
@@ -148,9 +161,9 @@ class LanguageModel:
             self._init_dense_block(bb, d_ff=self._dense_ff)
             parts.append(("block0", bb))
         for name, part in parts:
-            params[name] = part.params
+            params[name], axes[name] = part.params, part.axes
             specs.update({f"{name}/{k}": v for k, v in part.specs.items()})
-        return params, specs
+        return params, specs, axes
 
     @property
     def has_block0(self) -> bool:
@@ -215,7 +228,8 @@ class LanguageModel:
         """tokens [B, S] (and, vlm, img_feats [B, n_img, D]) -> logits
         [B, S, padded_vocab] (float32), causal over the whole sequence, no
         caches."""
-        return self._logits(params, self._run_blocks(params, tokens, img_feats, None))
+        logits = self._logits(params, self._run_blocks(params, tokens, img_feats, None))
+        return constrain(logits, ("act_batch", None, "act_vocab"))
 
     def loss(
         self,
@@ -235,10 +249,18 @@ class LanguageModel:
         logits = self.forward(params, tokens, img_feats)
         mask = labels >= 0
         safe = labels.clamp(min=0).long()
-        nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, safe[..., None])[..., 0]
+        if isinstance(logits, DTensor):
+            # Vocab-parallel: pick the label's logit shard by shard; a hit is
+            # the label's logit at the row's max (argmax up to ties).
+            picked = take_last(logits, safe)
+            hit = picked >= logits.amax(dim=-1)
+        else:
+            picked = logits.gather(-1, safe[..., None])[..., 0]
+            hit = logits.argmax(dim=-1) == safe
+        nll = torch.logsumexp(logits, dim=-1) - picked
         denom = mask.sum().clamp(min=1)
         loss = torch.where(mask, nll, 0.0).sum() / denom
-        acc = (mask & (logits.argmax(dim=-1) == safe)).sum() / denom
+        acc = (mask & hit).sum() / denom
         return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
 
     def prefill(
@@ -247,13 +269,17 @@ class LanguageModel:
         tokens: torch.Tensor,
         max_len: int,
         img_feats: Optional[torch.Tensor] = None,
+        cache: Optional[DecodeCache] = None,
     ) -> Tuple[torch.Tensor, DecodeCache]:
         """Process a prompt [B, S]; returns (logits [B, S, V], the decode
         cache of ``max_len`` positions filled through S).  One pass: the
         forward's, which writes each layer's K/V and SSM state into the
-        cache as it goes; its logits equal ``forward``'s bit for bit."""
+        cache as it goes; its logits equal ``forward``'s bit for bit.
+        ``cache``, if given, is the zeroed cache to fill (a sharded one,
+        in a cell on a mesh), else ``init_cache``'s."""
         b, s = tokens.shape
-        cache = self.init_cache(b, max_len, img_feats, device=tokens.device)
+        if cache is None:
+            cache = self.init_cache(b, max_len, img_feats, device=tokens.device)
         logits = self._logits(params, self._run_blocks(params, tokens, img_feats, cache))
         return logits, cache._replace(position=torch.full_like(cache.position, s))
 
@@ -281,7 +307,8 @@ class LanguageModel:
         fam = cfg.family
         eps = cfg.norm_eps
         b, s = tokens.shape
-        x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+        # Pin the residual stream to batch sharding, as the reference does.
+        x = constrain(embed(params["embed"], tokens, torch_dtype(cfg.dtype)), ("act_batch", None, None))
         remat = cfg.remat and fill is None and torch.is_grad_enabled()
 
         def layer(fn, h):
@@ -295,8 +322,8 @@ class LanguageModel:
                 p["attn"], rms_norm(h, p[norm]["scale"], eps), cfg, window=window
             )
             if k_c is not None:
-                k_c[:, :s] = k
-                v_c[:, :s] = v
+                write_prefix(k_c, k)
+                write_prefix(v_c, v)
             return h + out, k, v
 
         def dense_block(p, h, k_c=None, v_c=None, window=0):
@@ -306,8 +333,8 @@ class LanguageModel:
         def ssm_block(p, h, layer):
             out, c = ssm_lib.ssm_layer(p["ssm"], rms_norm(h, p["ln"]["scale"], eps), cfg)
             if fill is not None:
-                fill.ssm_conv[layer] = c.conv
-                fill.ssm_state[layer] = c.state
+                assign(fill.ssm_conv, (layer,), c.conv)
+                assign(fill.ssm_state, (layer,), c.state)
             return h + out
 
         def slot(leaf, *idx):
@@ -320,8 +347,8 @@ class LanguageModel:
         def local_block(p, h, u, i):
             h, k, v = dense_block(p, h, window=cfg.window)
             if fill is not None:
-                fill.k_loc[u, i] = _to_ring(k, s, cfg.window)
-                fill.v_loc[u, i] = _to_ring(v, s, cfg.window)
+                assign(fill.k_loc, (u, i), _to_ring(k, s, cfg.window))
+                assign(fill.v_loc, (u, i), _to_ring(v, s, cfg.window))
             return h
 
         def cross_block(p, h):
@@ -374,9 +401,10 @@ class LanguageModel:
         device: torch.device | str = "cuda",
     ) -> DecodeCache:
         """Zeroed caches for ``batch`` rows of up to ``max_len`` positions,
-        the reference's shapes and dtypes, on ``device``."""
+        the reference's shapes and dtypes, on ``device`` (``meta``: shapes
+        alone, nothing allocated)."""
         cfg = self.cfg
-        dev = resolve_device(device)
+        dev = resolve_device(device, allow_meta=True)
         dt = torch_dtype(cfg.dtype)
         kvh, hd = cfg.n_kv_heads, cfg.hd
 
@@ -420,14 +448,14 @@ class LanguageModel:
         b = tokens.shape[0]
         pos = cache.position  # [B]
         rows, at = torch.arange(b, device=tokens.device), pos.long()
-        x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+        x = constrain(embed(params["embed"], tokens, torch_dtype(cfg.dtype)), ("act_batch", None, None))
 
         def attn_step(p, h, k_c, v_c, window=0, norm="ln1"):
             out, k_new, v_new = attn_lib.attention_decode(
                 p["attn"], rms_norm(h, p[norm]["scale"], eps), k_c, v_c, pos, cfg, window=window
             )
-            k_c[rows, at] = k_new[:, 0]
-            v_c[rows, at] = v_new[:, 0]
+            write_token(k_c, at, k_new[:, 0], rows)
+            write_token(v_c, at, v_new[:, 0], rows)
             return h + out
 
         def dense_step(p, h, k_c, v_c):
@@ -439,8 +467,8 @@ class LanguageModel:
                 p["ssm"], rms_norm(h, p["ln"]["scale"], eps),
                 ssm_lib.SSMCache(cache.ssm_conv[layer], cache.ssm_state[layer]), cfg,
             )
-            cache.ssm_conv[layer] = c.conv
-            cache.ssm_state[layer] = c.state
+            assign(cache.ssm_conv, (layer,), c.conv)
+            assign(cache.ssm_state, (layer,), c.state)
             return h + out
 
         blocks = params["blocks"]
@@ -502,9 +530,9 @@ class LanguageModel:
         out = attn_lib._grouped_out(allp[..., :w], v_c) + attn_lib._grouped_out(allp[..., w:], v_new)
         h = h + attn_lib.out_proj(p["attn"], out)
         h = h + mlp(p["mlp"], rms_norm(h, p["ln2"]["scale"], cfg.norm_eps), cfg.act)
-        rows = torch.arange(h.shape[0], device=h.device)
-        k_c[rows, (pos % w).long()] = k_new[:, 0]
-        v_c[rows, (pos % w).long()] = v_new[:, 0]
+        rows, at = torch.arange(h.shape[0], device=h.device), (pos % w).long()
+        write_token(k_c, at, k_new[:, 0], rows)
+        write_token(v_c, at, v_new[:, 0], rows)
         return h
 
 

@@ -13,9 +13,10 @@ the batch: under capacity the rows of one decode step are coupled.
 The router's logits are taken in float32 from the router's float32
 weights, as the reference takes them; the expert products are plain
 batched matrix products on ``[E, cap, D]`` (the reference's ``einsum``,
-outside any Pallas kernel).  The reference's sharding hooks
-(``constrain``, ``gather_weight``) are the identity on one device and
-are dropped.
+outside any Pallas kernel).  The reference's sharding hooks sit where
+it has them: the expert weights gathered to their expert-parallel
+layout, the dispatch buffer constrained to it; both are the identity
+outside ``activation_sharding``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import bmm, constrain, gather_weight, matmul
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, act_fn
 
@@ -39,17 +41,17 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
 def init_moe(b, cfg: ModelConfig) -> None:
     d = cfg.d_model
     e_ff = cfg.expert_d_ff or cfg.d_ff
-    b.param("router", (d, cfg.n_experts))
+    b.param("router", (d, cfg.n_experts), ("embed", "experts"))
     s = b.scope("experts")
-    s.param("w_gate", (cfg.n_experts, d, e_ff))
-    s.param("w_up", (cfg.n_experts, d, e_ff))
-    s.param("w_down", (cfg.n_experts, e_ff, d))
+    s.param("w_gate", (cfg.n_experts, d, e_ff), ("experts", "embed", "expert_mlp"))
+    s.param("w_up", (cfg.n_experts, d, e_ff), ("experts", "embed", "expert_mlp"))
+    s.param("w_down", (cfg.n_experts, e_ff, d), ("experts", "expert_mlp", "embed"))
     if cfg.n_shared_experts:
         sh = b.scope("shared")
         sh_ff = e_ff * cfg.n_shared_experts
-        sh.param("w_gate", (d, sh_ff))
-        sh.param("w_up", (d, sh_ff))
-        sh.param("w_down", (sh_ff, d))
+        sh.param("w_gate", (d, sh_ff), ("embed", "mlp"))
+        sh.param("w_up", (d, sh_ff), ("embed", "mlp"))
+        sh.param("w_down", (sh_ff, d), ("mlp", "embed"))
 
 
 class Routing(NamedTuple):
@@ -71,7 +73,7 @@ def route(router: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig) -> Routi
     n_tok = tokens.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     cap = moe_capacity(cfg, n_tok)
-    logits = tokens.float() @ router.float()
+    logits = matmul(tokens.float(), router.float())
     gates = torch.softmax(logits, dim=-1)  # [T, E]
     top_w, top_e = torch.topk(gates, k, dim=-1)  # [T, k], descending
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
@@ -105,10 +107,11 @@ def _routed_tokens(router, we_gate, we_up, we_down, tokens: torch.Tensor, cfg: M
     e, k = cfg.n_experts, cfg.top_k
     r = route(router, tokens, cfg)
     dispatched, eid, slot = dispatch(tokens, r, e)  # [E, cap, D]
+    dispatched = constrain(dispatched, ("act_experts", None, None))
     act = act_fn(cfg.act)
-    gate = act(torch.bmm(dispatched, we_gate))
-    up = torch.bmm(dispatched, we_up)
-    expert_out = torch.bmm(gate * up, we_down)  # [E, cap, D]
+    gate = act(bmm(dispatched, we_gate))
+    up = bmm(dispatched, we_up)
+    expert_out = bmm(gate * up, we_down)  # [E, cap, D]
     gathered = expert_out[eid.clamp(max=e - 1), slot].reshape(n_tok, k, d)
     return (gathered * r.top_w[..., None].to(tokens.dtype)).sum(dim=1)
 
@@ -124,7 +127,8 @@ def moe_layer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     tokens = x.reshape(b * s, d)
     n_tok = b * s
     experts = params["experts"]
-    we = [experts[name].to(dt) for name in ("w_gate", "w_up", "w_down")]
+    we = [gather_weight(experts[name].to(dt), ("act_experts", None, None))
+          for name in ("w_gate", "w_up", "w_down")]
     chunk = cfg.moe_route_chunk
     if chunk and n_tok > chunk and n_tok % chunk == 0:
         combined = torch.cat([
@@ -135,6 +139,6 @@ def moe_layer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     if "shared" in params:
         act = act_fn(cfg.act)
         sp = params["shared"]
-        g = act(tokens @ sp["w_gate"].to(dt)) * (tokens @ sp["w_up"].to(dt))
-        combined = combined + g @ sp["w_down"].to(dt)
+        g = act(matmul(tokens, sp["w_gate"].to(dt))) * matmul(tokens, sp["w_up"].to(dt))
+        combined = combined + matmul(g, sp["w_down"].to(dt))
     return combined.reshape(b, s, d)

@@ -13,8 +13,10 @@ TF32 on the tensor cores.
 
 Single-token decode (:func:`ssm_decode`) carries ``(conv, state)`` and
 costs O(1) a step; it is plain PyTorch, as the reference computes it
-outside any kernel.  The reference's sharding hook (``gather_weight``)
-is the identity on one device and is dropped.
+outside any kernel.  The reference's sharding hook sits where it has
+it: the prefill's projections gather their weights to the model-axis
+layout (``gather_weight``, the identity outside
+``activation_sharding``); decode reads them as they lie.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_weight, matmul
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import N_GROUPS
@@ -37,18 +40,18 @@ def init_ssm(b, cfg: ModelConfig) -> None:
     d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
     h = cfg.n_ssm_heads
     conv_ch = di + 2 * N_GROUPS * n
-    b.param("w_in_z", (d, di))
-    b.param("w_in_x", (d, di))
-    b.param("w_in_b", (d, N_GROUPS * n))
-    b.param("w_in_c", (d, N_GROUPS * n))
-    b.param("w_in_dt", (d, h))
-    b.param("conv_w", (4, conv_ch), scale=0.5)
-    b.param("conv_b", (conv_ch,), init="zeros")
-    b.param("a_log", (h,), init="zeros")
-    b.param("dt_bias", (h,), init="zeros")
-    b.param("d_skip", (h,), init="ones")
-    b.param("norm_scale", (di,), init="zeros")
-    b.param("w_out", (di, d))
+    b.param("w_in_z", (d, di), ("embed", "mlp"))
+    b.param("w_in_x", (d, di), ("embed", "mlp"))
+    b.param("w_in_b", (d, N_GROUPS * n), ("embed", None))
+    b.param("w_in_c", (d, N_GROUPS * n), ("embed", None))
+    b.param("w_in_dt", (d, h), ("embed", "heads"))
+    b.param("conv_w", (4, conv_ch), (None, "mlp"), scale=0.5)
+    b.param("conv_b", (conv_ch,), ("mlp",), init="zeros")
+    b.param("a_log", (h,), ("heads",), init="zeros")
+    b.param("dt_bias", (h,), ("heads",), init="zeros")
+    b.param("d_skip", (h,), ("heads",), init="ones")
+    b.param("norm_scale", (di,), ("mlp",), init="zeros")
+    b.param("w_out", (di, d), ("mlp", "embed"))
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,25 +68,28 @@ class SSMCache(NamedTuple):
     state: torch.Tensor  # [B, H, P, N]
 
 
-def _in_proj(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """The conv's input channels ``[x, B, C]`` of x [..., D]."""
+def _in_proj(params: Params, x: torch.Tensor, gather: bool = False) -> torch.Tensor:
+    """The conv's input channels ``[x, B, C]`` of x [..., D]; ``gather``
+    lays each weight out as the prefill does (:func:`ssm_layer`)."""
     dt_ = x.dtype
-    return torch.cat(
-        [x @ params["w_in_x"].to(dt_), x @ params["w_in_b"].to(dt_), x @ params["w_in_c"].to(dt_)],
-        dim=-1,
-    )
+    names = {"w_in_x": (None, "act_mlp"), "w_in_b": (None, None), "w_in_c": (None, None)}
+    ws = [params[k].to(dt_) for k in names]
+    if gather:
+        ws = [gather_weight(w, v) for w, v in zip(ws, names.values(), strict=True)]
+    return torch.cat([matmul(x, w) for w in ws], dim=-1)
 
 
 def _dt_and_a(params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The step sizes (post-softplus, f32) of x [..., D] and the decay rates
     ``a = -exp(a_log)`` [H], both from the f32 leaves."""
-    dt = F.softplus((x @ params["w_in_dt"].to(x.dtype)).float() + params["dt_bias"].float())
+    dt = F.softplus(matmul(x, params["w_in_dt"].to(x.dtype)).float() + params["dt_bias"].float())
     return dt, -torch.exp(params["a_log"].float())
 
 
-def _out(params: Params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _out(params: Params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, gather: bool = False) -> torch.Tensor:
     y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
-    return y @ params["w_out"].to(y.dtype)
+    w = params["w_out"].to(y.dtype)
+    return matmul(y, gather_weight(w, ("act_mlp", None)) if gather else w)
 
 
 def ssm_layer(
@@ -96,8 +102,8 @@ def ssm_layer(
     dt_ = x.dtype
     b, s, _ = x.shape
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    z = x @ params["w_in_z"].to(dt_)
-    xbc = _in_proj(params, x)
+    z = matmul(x, gather_weight(params["w_in_z"].to(dt_), (None, "act_mlp")))
+    xbc = _in_proj(params, x, gather=True)
     conv_tail = F.pad(xbc[:, -3:], (0, 0, max(0, 3 - s), 0))
     act = F.silu(_conv1d(xbc, params["conv_w"], params["conv_b"]))
     xs = act[..., :di].reshape(b, s, h, p)
@@ -108,7 +114,7 @@ def ssm_layer(
         chunk=chunk,
     )
     y = y + params["d_skip"].float()[None, None, :, None] * xs.float()
-    out = _out(params, y.reshape(b, s, di).to(dt_), z, cfg)
+    out = _out(params, y.reshape(b, s, di).to(dt_), z, cfg, gather=True)
     return out, SSMCache(conv=conv_tail, state=h_last)
 
 
@@ -116,8 +122,9 @@ def init_ssm_cache(
     cfg: ModelConfig, batch: int, dtype: torch.dtype, device: torch.device | str = "cuda"
 ) -> SSMCache:
     """Zeroed decode cache of one layer: conv inputs in ``dtype``, the state
-    in float32, on ``device`` (the card unless the caller asks for the CPU)."""
-    dev = resolve_device(device)
+    in float32, on ``device`` (the card unless the caller asks for the CPU;
+    ``meta`` for shapes alone)."""
+    dev = resolve_device(device, allow_meta=True)
     conv_ch = cfg.d_inner + 2 * N_GROUPS * cfg.ssm_state
     return SSMCache(
         conv=torch.zeros((batch, 3, conv_ch), dtype=dtype, device=dev),

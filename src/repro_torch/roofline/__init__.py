@@ -1,11 +1,14 @@
-"""Analytic roofline terms for the H100 (the port of what
-``repro.roofline`` gives the scheduler simulator and the write-path
-bench): the card's peaks, a model's FLOPs and HBM bytes per step, and the
-COW write path's traffic model."""
+"""Roofline terms for the H100 (the port of ``repro.roofline``): the
+card's peaks, a model's FLOPs and HBM bytes per step, a traced step's
+roofline (:func:`analyze_traced`; the dry-run tables are
+:mod:`repro_torch.roofline.report`), and the COW write path's traffic
+model."""
 
 from repro_torch.roofline.analysis import (
     H100_SXM,
     Hardware,
+    Roofline,
+    analyze_traced,
     model_bytes_for,
     model_flops_for,
 )
@@ -22,6 +25,8 @@ from repro_torch.roofline.write_path import (
 __all__ = [
     "H100_SXM",
     "Hardware",
+    "Roofline",
+    "analyze_traced",
     "model_bytes_for",
     "model_flops_for",
     "WRITE_PATHS",

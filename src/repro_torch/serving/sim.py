@@ -27,10 +27,11 @@ pool's table corruption is not modeled).  Token *values*, logits, and the
 token-trace store are out of scope — they never feed back into a decision.
 
 The port's simulator is also bit-equal to the reference's on the same
-trace and cost numbers.  The reference's ``CostModel.from_hlo`` prices a
-tick from a compiled step's HLO; its counterpart waits for ROADMAP.md
-queue 1, item 8.
+trace and cost numbers.  ``CostModel.from_traced`` is the counterpart of
+the reference's ``CostModel.from_hlo``: it prices a tick from the
+engine's own decode step, traced (``repro_torch.distributed.costs``).
 """
+
 
 from __future__ import annotations
 
@@ -146,6 +147,39 @@ class CostModel:
             grow_s_per_block=grow_b,
             compact_s_per_block=comp_b,
         )
+
+    @classmethod
+    def from_traced(cls, engine, base: "CostModel", *, hw: Hardware = H100_SXM) -> "CostModel":
+        """Price the decode tick from the engine's own decode step, traced
+        on fake tensors with the card's routing
+        (:func:`repro_torch.distributed.costs.trace_per_rank`): the larger
+        of its FLOPs over the peak rate and its bytes over the HBM rate,
+        one card's program as the scheduler runs it.  Falls back to
+        ``base`` when the step does not trace (the counterpart of the
+        reference's ``from_hlo``, ``serving/sim.py:176-209`` of the JAX
+        package, which has no caller there either)."""
+        import torch
+
+        from repro_torch.distributed.costs import traced_costs
+        from repro_torch.serving.engine import _decode_step
+
+        n = engine.cache_cfg.max_seqs
+        dev = engine.cache.lengths.device
+        tokens = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+        mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+        cfg, ccfg = engine.lm.cfg, engine.cache_cfg
+
+        def step(params, cache, tokens, mask):
+            return _decode_step(cfg, ccfg, params, cache, tokens, mask)
+
+        try:
+            costs = traced_costs(step, (engine.params, engine.cache, tokens, mask), None, None)
+        except Exception:
+            return base
+        flops, byts = float(costs["flops"]), float(costs["bytes"])
+        if flops <= 0.0 and byts <= 0.0:
+            return base
+        return dataclasses.replace(base, step_s=max(flops / hw.peak_flops, byts / hw.hbm_bw))
 
     @classmethod
     def from_event_log(cls, log: SchedulerEventLog) -> "CostModel":

@@ -14,7 +14,12 @@
   * ``save_async`` copies the leaves to host memory on the caller
     (synchronously) and writes the files on a daemon thread;
   * ``keep`` checkpoints are retained, older ones removed;
-  * restore loads full tensors onto any device (``device=``).
+  * restore loads full tensors onto any device (``device=``), or, with
+    ``placements=``, onto any mesh: each rank keeps its shard of every
+    leaf (elastic restore across meshes, as the reference's
+    ``shardings=``);
+  * a DTensor leaf is saved whole (gathered over its mesh), and on a
+    process group only rank 0 writes.
 
 numpy has no bfloat16: a bf16 leaf is written as its f32 value, and
 restore casts every leaf to the dtype of the matching leaf of ``like``.
@@ -61,6 +66,10 @@ def _unflatten(like: Any, values: Dict[str, Any], prefix: str = "") -> Any:
 
 
 def _host(leaf: Any) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -78,8 +87,17 @@ class Checkpointer:
 
     # ------------------------------------------------------------------
     def save(self, step: int, state: Any, extra: Optional[Dict] = None) -> Path:
+        """Write ``state`` as step ``step``; every rank of a process group
+        calls it (DTensor leaves are gathered), rank 0 writes, and all
+        return once the checkpoint is in place."""
         self.wait()
-        return self._save_sync(step, self._snapshot(state), extra or {})
+        host = self._snapshot(state)
+        final = self.dir / f"step_{step:010d}"
+        if _rank() == 0:
+            final = self._save_sync(step, host, extra or {})
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()
+        return final
 
     def save_async(self, step: int, state: Any, extra: Optional[Dict] = None) -> None:
         """Snapshot on the caller, write on a background thread."""
@@ -129,12 +147,18 @@ class Checkpointer:
         return int(ckpts[-1].name.split("_")[1]) if ckpts else None
 
     def restore(
-        self, like: Any, step: Optional[int] = None, *, device: torch.device | str = "cuda"
+        self, like: Any, step: Optional[int] = None, *, device: torch.device | str = "cuda",
+        placements: Any = None,
     ) -> Tuple[Any, int, Dict]:
         """Load into the structure of ``like`` (each leaf cast to the dtype
         of ``like``'s, on ``device``); returns ``(state, step, extra)``.
-        The files hold full tensors, so any device takes them."""
+        The files hold full tensors, so any device takes them, and any
+        mesh: ``placements``, a tree like ``like`` of
+        :class:`~repro_torch.distributed.sharding.NamedSharding`, makes each
+        leaf a DTensor of that layout, this rank's shard cut from the file
+        (no communication)."""
         dev = resolve_device(device)
+        layouts = dict(flatten_with_paths(placements)) if placements is not None else {}
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -151,4 +175,23 @@ class Checkpointer:
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: stored shape {tuple(arr.shape)}, expected {tuple(leaf.shape)}")
             values[key] = arr.to(device=dev, dtype=leaf.dtype)
+            if key in layouts:
+                values[key] = _shard(values[key], layouts[key])
         return _unflatten(like, values), meta["step"], meta.get("extra", {})
+
+
+def _rank() -> int:
+    return torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+
+
+def _shard(full: torch.Tensor, sharding) -> torch.Tensor:
+    """This rank's shard of ``full`` under ``sharding`` (a NamedSharding),
+    as a DTensor."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    pls = sharding.placements
+    shape, offset = compute_local_shape_and_global_offset(full.shape, sharding.mesh, pls)
+    local = full[tuple(slice(o, o + n) for o, n in zip(offset, shape, strict=True))]
+    return DTensor.from_local(local.contiguous(), sharding.mesh, pls, run_check=False,
+                              shape=full.shape, stride=full.stride())

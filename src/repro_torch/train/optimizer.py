@@ -104,18 +104,42 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm * decay
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard (the update is elementwise); a tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _all_sum(leaf: torch.Tensor, local_sum: torch.Tensor) -> torch.Tensor:
+    """The sum over a DTensor leaf's shards of their ``local_sum`` (an
+    all-reduce over the mesh dimensions that shard it); a plain leaf's
+    ``local_sum`` as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(leaf, DTensor):
+        return local_sum
+    pls = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in leaf.placements)
+    summed = DTensor.from_local(local_sum, leaf.device_mesh, pls, run_check=False)
+    return summed.redistribute(leaf.device_mesh, tuple(Replicate() for _ in pls)).to_local()
+
+
 def _slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
-    flat = t.view(-1)
+    # A shard of a DTensor gradient may be a transposed view (read only
+    # here); params and moments are contiguous, so their slices are views.
+    local = _local(t)
+    flat = local.view(-1) if local.is_contiguous() else local.reshape(-1)
     for start in range(0, flat.numel(), SLICE):
         yield flat[start : start + SLICE]
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares (a
+    DTensor leaf's summed over its shards)."""
     sums = []
     for leaf in tree_leaves(tree):
         parts = [torch.sum(torch.square(s.float())) for s in _slices(leaf)]
-        sums.append(torch.stack(parts).sum() if len(parts) > 1 else parts[0])
+        sums.append(_all_sum(leaf, torch.stack(parts).sum() if len(parts) > 1 else parts[0]))
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -144,6 +168,7 @@ def adamw_update(
     stepf = step.float()
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
+    lr_, bc1, bc2 = _local(lr), _local(bc1), _local(bc2)
     leaves = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu),
                  strict=True)
     for p, g, m, v in leaves:
@@ -153,5 +178,5 @@ def adamw_update(
             vs.mul_(b2).add_((1 - b2) * g32 * g32)
             p32 = ps.float()
             delta = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps) + cfg.weight_decay * p32
-            ps.copy_(p32 - lr * delta)
+            ps.copy_(p32 - lr_ * delta)
     return params, OptState(step=step, mu=state.mu, nu=state.nu), {"grad_norm": gnorm, "learning_rate": lr}
