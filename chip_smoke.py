@@ -352,13 +352,22 @@ Phases (any failed check raises, and the script exits non-zero):
     memory terms (``analyze_traced``) beside the wall, the peak memory and
     the phase's wall.
 
+20. The contract lint (``repro_torch.analysis``, the port's six rules:
+    ``unthreaded-pool``, ``stale-remap``, ``id-into-values``,
+    ``use-after-consume``, ``build-in-hot-path``, ``unchecked-oom``) over
+    the tree this script ships with, ``src/repro_torch`` and
+    ``chip_smoke.py``: host code, no jax, nothing imported of what it
+    checks.  Any unsuppressed finding fails the run.  Prints ``{"lint":
+    ...}`` (the rules, the files, the findings left, the suppressed count
+    and the wall).
+
 Phase 14 runs PCFG at T = 500 (``PROGRAM_T``; the paper's 3,262 is its
 ``PAPER_T``), phase 17 at T = 128 (``SHARDED_T``) and phase 5 at T = 512
 (``PROFILE_T``), so the script keeps within its time budget; each phase
 prints its wall (``phase_walls``).
 
 Output: a line per run, the ``{"profile": ...}``, ``{"serve_profile": ...}``,
-``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"sharded": ...}``, ``{"programs": ...}``, ``{"families": ...}``, ``{"dense_cache": ...}``, ``{"train": ...}``, ``{"paged_cell": ...}``, ``{"phase_walls": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
+``{"smc_decode": ...}``, ``{"fleet": ...}``, ``{"sharded": ...}``, ``{"programs": ...}``, ``{"families": ...}``, ``{"dense_cache": ...}``, ``{"train": ...}``, ``{"paged_cell": ...}``, ``{"lint": ...}``, ``{"phase_walls": ...}`` and ``{"kernels": [...]}`` JSON lines, the card's name and power limit
 from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -3845,6 +3854,31 @@ def paged_cell_phase(dev, rate, rows) -> None:
             r["qwen_g5"] = {k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
 
 
+def lint_phase(root: Path) -> dict:
+    """Phase 20: the port's contract lint over ``src/repro_torch`` and
+    ``chip_smoke.py`` under ``root``.  Prints the ``{"lint": ...}`` line
+    and raises on any unsuppressed finding."""
+    from repro_torch.analysis import ALL_RULES, lint_paths
+    from repro_torch.analysis.engine import iter_python_files
+
+    t = time.perf_counter()
+    targets = [root / "src" / "repro_torch", root / "chip_smoke.py"]
+    findings = lint_paths(targets)
+    active = [f for f in findings if not f.suppressed]
+    out = {
+        "rules": [r.name for r in ALL_RULES],
+        "files": len(iter_python_files(targets)),
+        "findings": len(active),
+        "suppressed": len(findings) - len(active),
+        "wall_s": time.perf_counter() - t,
+    }
+    print(json.dumps({"lint": out}), flush=True)
+    for f in active:
+        print(f.render(), flush=True)
+    require(not active, f"the contract lint is clean ({', '.join(sorted({f.rule for f in active}))})")
+    return out
+
+
 def settle() -> None:
     """Between phases: collect Python's cyclic garbage, then return the
     cached blocks, so a phase starts with only what is still referenced.
@@ -4222,6 +4256,10 @@ def main() -> int:
         **profile_summary(prof, wall_s * 1e3, prof_t, "generation", "cow_write_kernel", traced),
     }}), flush=True)
     wall("5")
+
+    # -- 20. the contract lint over the tree this script ships with ---------
+    lint_phase(ROOT)
+    wall("20")
     walls["script"] = time.perf_counter() - t0
     print(json.dumps({"phase_walls": walls}), flush=True)
 
